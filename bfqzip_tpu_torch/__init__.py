@@ -1,15 +1,21 @@
 """bfqzip_tpu_torch — the PyTorch + CUDA port of bfqzip_tpu for NVIDIA Hopper.
 
-The in-memory one-batch smoothing path (EBWT + QS + LCP build, positional
-cluster smoothing, inversion) on PyTorch tensors, with the segmented scan as
-a hand-written CUDA kernel (csrc/seg_scan.cu).  The JAX package bfqzip_tpu
-stays the reference; this package imports torch and never jax, and reuses
-only bfqzip_tpu's host-only modules (alphabet, config, io.fastq).
+The compression pipeline and its CLI on PyTorch tensors: EBWT + QS + LCP
+build, positional cluster smoothing, inversion (SA scatter in memory, LF walk
+from the cached artifacts), stream split and host entropy coding, with the
+segmented scan as a hand-written CUDA kernel (csrc/seg_scan.cu).  The JAX
+package bfqzip_tpu stays the reference; this package imports torch and never
+jax, and reuses only bfqzip_tpu's jax-free host modules (alphabet, config,
+io.fastq, models.context, utils.native / reorder / debug / logging, and the
+CLI parser).
 
-  bfqzip_tpu_torch.engine   smooth_step / smooth_fastq
-  bfqzip_tpu_torch.ops      suffix build, scans, smoothing, inversion
-  bfqzip_tpu_torch.convert  numpy <-> tensor state (EBWT, read batches)
-  bfqzip_tpu_torch.utils    nvcc build of csrc/*.cu, loaded with ctypes
+  bfqzip_tpu_torch.cli       python -m bfqzip_tpu_torch (same flags as bfqzip_tpu)
+  bfqzip_tpu_torch.pipeline  steps 1-5 with the artifact cache, restore, decompress
+  bfqzip_tpu_torch.engine    smooth_fastq / smooth_arrays_step
+  bfqzip_tpu_torch.ops       suffix build, scans, rank/LF, smoothing, inversion, rANS
+  bfqzip_tpu_torch.models    BQZH header codec, BQZE decoder
+  bfqzip_tpu_torch.convert   numpy <-> tensor state (EBWT, read batches)
+  bfqzip_tpu_torch.utils     nvcc build of csrc/*.cu (ctypes), StepLogger
 
 No device is chosen at import: callers pass one.
 """

@@ -1,8 +1,9 @@
 """Single-device end-to-end engine: FASTQ batch -> smoothed FASTQ batch.
 
-Port of bfqzip_tpu/engine.py::smooth_step / smooth_fastq: build_ebwt ->
-smooth -> invert_via_sa, run eagerly on the device of the input tensors.
-No shape bucketing: PyTorch does not recompile per shape.
+Port of bfqzip_tpu/engine.py: smooth_step / smooth_fastq (build_ebwt ->
+smooth -> invert_via_sa) and smooth_arrays_step (cached artifacts ->
+lf_array -> smooth -> LF-walk invert), run eagerly on the device of the
+input tensors.  No shape bucketing: PyTorch does not recompile per shape.
 """
 
 from __future__ import annotations
@@ -14,9 +15,9 @@ import torch
 from bfqzip_tpu.config import SmoothConfig
 from bfqzip_tpu.io.fastq import ReadBatch
 from bfqzip_tpu_torch.convert import batch_to_tensors
-from bfqzip_tpu_torch.ops.invert import InvertOut, invert_via_sa
-from bfqzip_tpu_torch.ops.smooth import smooth
-from bfqzip_tpu_torch.ops.suffix import build_ebwt
+from bfqzip_tpu_torch.ops.invert import InvertOut, invert, invert_via_sa
+from bfqzip_tpu_torch.ops.smooth import lf_and_pre, smooth
+from bfqzip_tpu_torch.ops.suffix import EbwtDevice, build_ebwt
 
 
 def smooth_step(
@@ -30,6 +31,21 @@ def smooth_step(
         ebwt.sa, ebwt.bwt, out.bwt_sub, out.qs, ebwt.n, n_reads, width, binning=cfg.binning
     )
     return inv, out.stats
+
+
+def smooth_arrays_step(
+    bwt: torch.Tensor, qs: torch.Tensor, lcp: torch.Tensor, n: torch.Tensor,
+    n_reads: int, width: int, cfg: SmoothConfig,
+) -> Tuple[InvertOut, torch.Tensor, torch.Tensor, dict]:
+    """Smooth + invert from step-1 artifacts (bwt/qs/lcp padded past `n`,
+    n a 0-d int32 tensor on their device).  They carry no suffix array, so
+    LF is computed once: pre = bwt[LF] for the smoother, and the LF walk
+    inverts."""
+    lf, pre = lf_and_pre(bwt, n)
+    ebwt = EbwtDevice(bwt=bwt, qs=qs, lcp=lcp, sa=None, text=None, n=n)
+    out = smooth(ebwt, cfg, pre=pre)
+    inv = invert(bwt, out.bwt_sub, out.qs, lf, n_reads, width, binning=cfg.binning)
+    return inv, out.bwt_sub, out.qs, out.stats
 
 
 def resolve_device(device) -> torch.device:

@@ -24,6 +24,7 @@ import torch
 
 from bfqzip_tpu import alphabet
 from bfqzip_tpu.config import SmoothConfig
+from bfqzip_tpu_torch.ops.rank import lf_array
 from bfqzip_tpu_torch.ops.scan import LOCAL_OPS
 from bfqzip_tpu_torch.ops.suffix import EbwtDevice
 
@@ -96,11 +97,22 @@ def _mean_error_quality(qs, keep, c_esum_fn, safe_basenum):
     return _M1_VMIN + above.to(torch.int32) + 33
 
 
-def smooth(ebwt: EbwtDevice, cfg: SmoothConfig, pre: torch.Tensor, ops=None) -> SmoothOut:
+def lf_and_pre(bwt: torch.Tensor, n: torch.Tensor, ops=None) -> tuple:
+    """(LF, pre = bwt[LF]) of an EBWT that carries no suffix array, as the
+    cached-artifact path's is; positions at or past `n` keep LF[i] = i."""
+    ops = ops or LOCAL_OPS
+    lf = lf_array(bwt, ops.iota(bwt.shape[0], bwt.device) < n, ops)
+    return lf, bwt[lf]
+
+
+def smooth(ebwt: EbwtDevice, cfg: SmoothConfig, pre: torch.Tensor | None = None, ops=None) -> SmoothOut:
     """Smooth the EBWT; `pre` is the symbol preceding each BWT position
-    (EbwtDevice.pre of the flat build)."""
+    (EbwtDevice.pre of the flat build).  Without it, pre comes from
+    lf_and_pre."""
     ops = ops or LOCAL_OPS
     bwt, qs, lcp, n = ebwt.bwt, ebwt.qs, ebwt.lcp, ebwt.n
+    if pre is None:
+        _, pre = lf_and_pre(bwt, n, ops)
     word, close_mark, in_cluster, stats = cluster_words(bwt, qs, lcp, n, cfg, pre, ops)
     # broadcast the close-position word back over the cluster members with a
     # keep-left segmented scan from the right

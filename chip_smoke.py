@@ -15,6 +15,14 @@ Phases, each printed on its own line; the first failure exits non-zero:
   5. real size    2M x 101 bp realistic reads: warm-up + 3 timed
                   smooth_fastq runs, stage times, peak memory, kernel launch
                   counts, the identity round trip and kernel-vs-plain smooth
+  6. cli          the native codec library (make -B -C native, started at the
+                  beginning) must load; the phase-5 reads as a FASTQ through
+                  bfqzip_tpu_torch.cli -0 --rebuild (steps 1-3 through the
+                  cached artifacts and the LF walk) byte-equal to
+                  smooth_fastq's, >= 6 seg_scan launches, a cached re-run
+                  that skips step 1 with the same bytes, lf_array / smooth /
+                  LF walk timed alone; then 200K reads through --m3,
+                  --restore and --decompress, byte-equal, with MB/s
 Then a JSON line describing each kernel, and last the result line
 {"ok": true, "device": {...}}.  Imports no jax.
 """
@@ -31,6 +39,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden")
 N_BENCH = 20_400_000  # 200K reads x 102 positions
 REAL_READS, REAL_LEN = 2_000_000, 101
+# the host codecs encode ~2.8 MB/s over the three streams on the host of an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md), so their depth is cut
+CODEC_READS = 200_000
+WORK = os.path.join(ROOT, "build", "chip_smoke")  # gitignored
 
 
 def phase(name: str, **fields) -> None:
@@ -183,29 +195,36 @@ def goldens() -> None:
     phase("goldens", byte_equal=len(done), names=done)
 
 
-def real_size() -> dict:
+def real_batch():
+    """The 2M x 101 bp realistic reads of phases 5 and 6, and the seconds
+    taken to make them."""
     import numpy as np
-    import torch
 
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     from make_realistic import make
 
+    from bfqzip_tpu_torch.io import ReadBatch, encode
+
+    t = time.time()
+    seq_ascii, quals = make(REAL_READS, REAL_LEN, 4.6, 0, 0.005, 0.001)
+    batch = ReadBatch(seqs=encode(seq_ascii), quals=quals,
+                      lengths=np.full(REAL_READS, REAL_LEN, np.int32))
+    return batch, time.time() - t
+
+
+def real_size(batch, t_data: float) -> dict:
+    import numpy as np
+    import torch
+
     from bfqzip_tpu_torch import SmoothConfig
     from bfqzip_tpu_torch.convert import batch_to_tensors
     from bfqzip_tpu_torch.engine import smooth_fastq
-    from bfqzip_tpu_torch.io import ReadBatch, encode
     from bfqzip_tpu_torch.ops import cuda_scan
     from bfqzip_tpu_torch.ops.invert import invert_via_sa
     from bfqzip_tpu_torch.ops.scan import LocalScanOps, seg_scan
     from bfqzip_tpu_torch.ops.smooth import smooth
     from bfqzip_tpu_torch.ops.suffix import build_ebwt
 
-    t = time.time()
-    seq_ascii, quals = make(REAL_READS, REAL_LEN, 4.6, 0, 0.005, 0.001)
-    batch = ReadBatch(seqs=encode(seq_ascii), quals=quals,
-                      lengths=np.full(REAL_READS, REAL_LEN, np.int32))
-    del seq_ascii
-    t_data = time.time() - t
     cfg = SmoothConfig()
     total_bases = REAL_READS * REAL_LEN
 
@@ -295,21 +314,197 @@ def real_size() -> dict:
     return res
 
 
+def _cli(argv, reports=None) -> float:
+    """bfqzip_tpu_torch.cli.main(argv) on the card; its seconds.  The
+    pipeline's report (sizes, per-phase seconds and device bytes) of a
+    compress run is appended to `reports`."""
+    import torch
+
+    from bfqzip_tpu_torch import cli, pipeline
+
+    run = pipeline.run_pipeline
+
+    def recording(*a, **k):
+        res = run(*a, **k)
+        reports.append(res.report)
+        return res
+
+    if reports is not None:
+        pipeline.run_pipeline = recording
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+    finally:
+        pipeline.run_pipeline = run
+    if rc != 0:
+        fail(f"bfqzip_tpu_torch {' '.join(argv)} exited {rc}")
+    return dt
+
+
+def _phases(report) -> list:
+    return [{"phase": p["phase"], "seconds": p["seconds"],
+             "peak_bytes": p.get("peak_bytes_in_use")} for p in report["phases"]]
+
+
+def _read(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def cli_path(batch, native_make) -> dict:
+    """Phase 6: the CLI through the cached-artifact path at 2M reads, and
+    the codec path (compress, restore, decompress) at 200K reads."""
+    import torch
+
+    from bfqzip_tpu_torch import SmoothConfig
+    from bfqzip_tpu_torch.engine import smooth_fastq
+    from bfqzip_tpu_torch.io import ReadBatch, format_fastq
+    from bfqzip_tpu_torch.ops import cuda_scan, rans
+    from bfqzip_tpu_torch.ops.invert import invert
+    from bfqzip_tpu_torch.ops.rank import lf_array
+    from bfqzip_tpu_torch.ops.smooth import smooth
+    from bfqzip_tpu_torch.ops.suffix import EbwtDevice
+    from bfqzip_tpu_torch.pipeline import load_artifacts
+
+    rc, make_log, make_s = native_make
+    if rc != 0 or not rans.native_available():
+        fail(f"native codec library unavailable (make -C native exited {rc}):\n{make_log[-3000:]}")
+
+    os.makedirs(WORK, exist_ok=True)
+    headers = [b"@r%d" % i for i in range(batch.num_reads)]
+    t = time.time()
+    inp = os.path.join(WORK, "real.fastq")
+    with open(inp, "wb") as f:
+        f.write(format_fastq(ReadBatch(seqs=batch.seqs, quals=batch.quals,
+                                       lengths=batch.lengths, headers=headers)))
+    write_s = time.time() - t
+
+    # steps 1-3 at full size through the artifacts; mode 0 skips the codecs
+    out = os.path.join(WORK, "real")
+    reports = []
+    cuda_scan.launches = 0
+    cli_s = _cli([inp, "-o", out, "-0", "--rebuild"], reports)
+    launches = [cuda_scan.launches]
+    if launches[0] < 6:
+        fail(f"seg_scan launched {launches[0]} times in the CLI run, expected >= 6 "
+             "(smooth's 5 + lf_array's 1; step 1 runs no scan)")
+    fq = _read(out + ".fq")
+    ref, _ = smooth_fastq(batch, SmoothConfig(), device="cuda")
+    if fq != format_fastq(ref, headers=None):
+        fail("CLI .fq (LF-walk path) differs from smooth_fastq (SA path) at 2M reads")
+    del ref
+
+    # the cached run skips step 1 and writes the same bytes
+    bwt_mtime = os.stat(out + ".bwt").st_mtime_ns
+    cuda_scan.launches = 0
+    cached_s = _cli([inp, "-o", out, "-0"], reports)
+    launches.append(cuda_scan.launches)
+    if os.stat(out + ".bwt").st_mtime_ns != bwt_mtime or any(
+            p["phase"].startswith("step1") for p in reports[1]["phases"]):
+        fail("the second CLI run did not reuse the step-1 artifacts")
+    if _read(out + ".fq") != fq:
+        fail("the cached CLI run wrote other bytes")
+    del fq
+
+    # step 3's parts on the artifacts, each timed alone
+    (bwt, qs, lcp, n_t), meta = load_artifacts(out, "cuda")
+    stage = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        stage[name] = (time.perf_counter() - t0) * 1e3
+        return r
+
+    valid = torch.arange(bwt.shape[0], dtype=torch.int32, device=bwt.device) < n_t
+    lf = timed("lf_array_ms", lambda: lf_array(bwt, valid))
+    sm = timed("smooth_ms", lambda: smooth(EbwtDevice(bwt, qs, lcp, None, None, n_t),
+                                           SmoothConfig(), pre=bwt[lf]))
+    timed("lf_walk_invert_ms", lambda: invert(bwt, sm.bwt_sub, sm.qs, lf,
+                                              meta["n_reads"], meta["max_len"]))
+    del bwt, qs, lcp, lf, sm, valid
+
+    # the codec path at 200K reads: --m3, --restore, --decompress
+    k = CODEC_READS
+    small = ReadBatch(seqs=batch.seqs[:k], quals=batch.quals[:k], lengths=batch.lengths[:k],
+                      headers=headers[:k])
+    inp2, out2 = os.path.join(WORK, "small.fastq"), os.path.join(WORK, "small")
+    with open(inp2, "wb") as f:
+        f.write(format_fastq(small))
+    cuda_scan.launches = 0
+    m3_s = _cli([inp2, "-o", out2, "--m3", "--rebuild"], reports)
+    launches.append(cuda_scan.launches)
+    ref, _ = smooth_fastq(small, SmoothConfig(), device="cuda")
+    if _read(out2 + ".fq") != format_fastq(ref):
+        fail("--m3 .fq differs from smooth_fastq at 200K reads")
+    streams = [out2 + s for s in (".fq.dna", ".fq.qs", ".h")]
+    stream_bytes = sum(os.path.getsize(s) for s in streams)
+    archive_bytes = sum(os.path.getsize(s + ".rans") for s in streams)
+    step5 = [p for p in reports[2]["phases"] if p["phase"].startswith("step5")]
+    restore_s = _cli(["--restore", out2, "-o", out2 + ".restored.fastq"])
+    if _read(out2 + ".restored.fastq") != _read(out2 + ".fq"):
+        fail("--restore differs from the compressed .fq")
+    decode_s = 0.0
+    for s in streams:
+        decode_s += _cli(["--decompress", s + ".rans", "-o", s + ".dec"])
+        if _read(s + ".dec") != _read(s):
+            fail(f"--decompress of {os.path.basename(s)}.rans differs from the stream")
+
+    res = {
+        "native_make_s": make_s, "fastq_write_s": write_s, "reads": batch.num_reads,
+        "cli_s": cli_s, "cached_cli_s": cached_s, "launches_per_run": launches,
+        "launches": sum(launches), "byte_equal_to_smooth_fastq": True, "cache_reused": True,
+        "phases": _phases(reports[0]), "cached_phases": _phases(reports[1]), **stage,
+        "codec_reads": k, "m3_s": m3_s, "m3_phases": _phases(reports[2]),
+        "stream_bytes": stream_bytes, "archive_bytes": archive_bytes,
+        "encode_mb_s": stream_bytes / 1e6 / step5[0]["seconds"],
+        "restore_mb_s": os.path.getsize(out2 + ".fq") / 1e6 / restore_s,
+        "decode_mb_s": stream_bytes / 1e6 / decode_s, "restored_byte_equal": True,
+    }
+    phase("cli", **res)
+    return res
+
+
+def native_make():
+    """Start `make -B -C native` (the host codec library) in the background.
+    -B rebuilds a copy left in the tree: it is built with -march=native and
+    may come from another host's CPU."""
+    return subprocess.Popen(["make", "-B", "-C", os.path.join(ROOT, "native")],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs an NVIDIA GPU")
-    smi = environment()
-    build()
-    max_abs = kernel_vs_plain()
+    t_make = time.time()
+    make = native_make()
+    try:
+        smi = environment()
+        build()
+        max_abs = kernel_vs_plain()
+        make_log = make.communicate()[0]
+        made = (make.returncode, make_log, time.time() - t_make)
+    finally:
+        if make.poll() is None:
+            make.kill()
+            make.wait()
     goldens()
-    real = real_size()
+    batch, t_data = real_batch()
+    real = real_size(batch, t_data)
+    cli = cli_path(batch, made)
     if "jax" in sys.modules:
         fail("jax was imported")
     print(json.dumps({"kernels": [{
         "name": "seg_scan", "route": "cuda", "source": "bfqzip_tpu_torch/csrc/seg_scan.cu",
-        "replaces": "bfqzip_tpu/ops/pallas_scan.py:89", "launches": real["launches"],
+        "replaces": "bfqzip_tpu/ops/pallas_scan.py:89",
+        "launches": real["launches"] + cli["launches"],
         "max_abs_err": max_abs, "ms": real["scan_ms"], "plain_ms": real["scan_plain_ms"],
     }]}))
     print(smi)

@@ -1,0 +1,105 @@
+"""The port's CLI: compress, restore and decompress run end to end in a
+process where jax cannot be imported; the parser's exit codes; the refused
+--ext-mem / --mesh; and no silent CPU run when CUDA is asked for without a
+card."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from bfqzip_tpu_torch import cli
+
+from conftest import golden_path
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_RUN_BLOCKED = """
+import runpy, sys
+
+class BlockJax:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib"):
+            raise ImportError(f"jax is blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, BlockJax())
+inp, base = sys.argv[1], sys.argv[2]
+runs = [
+    [inp, "-o", base, "--m3", "--cpu"],
+    ["--restore", base, "-o", base + ".restored.fastq", "--cpu"],
+    ["--decompress", base + ".fq.dna.rans", base + ".fq.qs.rans", base + ".h.rans", "--cpu"],
+]
+for argv in runs:
+    sys.argv = ["bfqzip_tpu_torch", *argv]
+    try:
+        runpy.run_module("bfqzip_tpu_torch", run_name="__main__", alter_sys=True)
+    except SystemExit as e:
+        if e.code != 0:
+            raise
+assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
+print("ran", len(runs))
+"""
+
+
+def test_cli_runs_with_jax_blocked(tmp_path):
+    src = str(tmp_path / "reads.fastq")
+    shutil.copyfile(golden_path("example.in.fastq"), src)
+    base = str(tmp_path / "out")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _RUN_BLOCKED, src, base], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "ran 3" in proc.stdout
+    fq = open(base + ".fq", "rb").read()
+    with open(golden_path("example.m2b0h.fq"), "rb") as f:
+        assert fq == f.read()
+    assert open(base + ".restored.fastq", "rb").read() == fq
+    # --decompress wrote each stream back over its original name
+    lines = fq.split(b"\n")
+    assert open(base + ".fq.dna", "rb").read() == b"\n".join(lines[1::4]) + b"\n"
+    assert open(base + ".fq.qs", "rb").read() == b"\n".join(lines[3::4]) + b"\n"
+    assert open(base + ".h", "rb").read() == b"\n".join(lines[0:-1:4]) + b"\n"
+    assert "restored" in proc.stdout and "MB/s" in proc.stdout
+
+
+def test_decompress_to_named_output(tmp_path):
+    src = str(tmp_path / "reads.fastq")
+    shutil.copyfile(golden_path("example.in.fastq"), src)
+    base = str(tmp_path / "o")
+    assert cli.main([src, "-o", base, "-2", "--cpu"]) == 0
+    assert cli.main(["--decompress", base + ".fq.qs.rans", "-o", base + ".qs.out", "--cpu"]) == 0
+    assert open(base + ".qs.out", "rb").read() == open(base + ".fq.qs", "rb").read()
+    assert cli.main(["--decompress", base + ".fq.qs.rans", base + ".fq.dna.rans", "-o", "x"]) == 2
+
+
+def test_bad_arguments_exit_2(tmp_path, capsys):
+    assert cli.main(["a.fastq", "b.fastq", "--cpu"]) == 2
+    assert "paired" in capsys.readouterr().err
+    assert cli.main([str(tmp_path / "missing.fastq"), "--cpu"]) == 2
+    assert "not found" in capsys.readouterr().err
+    assert cli.main(["--restore", "a", "b"]) == 2
+    with pytest.raises(SystemExit) as e:
+        cli.main(["x.fastq", "--no-such-flag"])
+    assert e.value.code == 2
+    assert "bfqzip_tpu_torch" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [["--ext-mem"], ["--mesh", "4"]])
+def test_unported_flags_exit_2(tmp_path, capsys, flags):
+    src = golden_path("example.in.fastq")
+    assert cli.main([src, "-o", str(tmp_path / "o"), "--cpu", *flags]) == 2
+    assert "not ported" in capsys.readouterr().err
+    assert os.listdir(tmp_path) == []
+
+
+def test_cuda_without_card_exits_nonzero(tmp_path, capsys, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    src = golden_path("example.in.fastq")
+    rc = cli.main([src, "-o", str(tmp_path / "o"), "--m3"])
+    assert rc != 0
+    assert "cuda" in capsys.readouterr().err
+    assert os.listdir(tmp_path) == []
