@@ -4,8 +4,9 @@
     python -m bfqzip_tpu_torch INPUT.fastq -o OUT --m3 --cpu    # on the CPU
 
 Without --cpu the device is `cuda`, and a run without a card exits non-zero
-with the reason on stderr.  --ext-mem and --mesh are not ported yet: they
-exit 2.  --restore and --decompress run the host codecs and need no card.
+with the reason on stderr.  --ext-mem [--mem MB] runs the out-of-core path
+under a device-memory budget.  --mesh is not ported yet: it exits 2.
+--restore and --decompress run the host codecs and need no card.
 """
 
 from __future__ import annotations
@@ -28,11 +29,10 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     device = "cpu" if args.cpu else "cuda"
 
-    for flag, given, item in (("--ext-mem", args.ext_mem, 11), ("--mesh", args.mesh, 12)):
-        if given:
-            print(f"error: {flag} is not ported yet to bfqzip_tpu_torch "
-                  f"(ROADMAP.md Queue 1 item {item}); use python -m bfqzip_tpu", file=sys.stderr)
-            return 2
+    if args.mesh:
+        print("error: --mesh is not ported yet to bfqzip_tpu_torch "
+              "(ROADMAP.md Queue 1 item 12); use python -m bfqzip_tpu", file=sys.stderr)
+        return 2
 
     if args.decompress:
         from bfqzip_tpu_torch.pipeline import decompress_stream
@@ -115,6 +115,7 @@ def main(argv=None) -> int:
         check=args.check,
         reorder=args.reorder,
         blocks=args.threads,
+        ext_mem_mb=args.mem if args.ext_mem else 0,
         debug_dump=args.debug_dump,
         device=device,
     )

@@ -5,10 +5,14 @@
 // one flag row shared by all channels:
 //
 //     out[i] = x[i]                     if flag[i]
-//              combine(out[i-1], x[i])  otherwise,   out[-1] = init
+//              combine(out[i-1], x[i])  otherwise,   out[-1] = init[c]
 //
 // with combine in {add, max, or, keepleft (combine(a, b) = a)} on int32 and
-// add on float64.  `reverse` maps logical index j to n-1-j, so a right-to-left
+// int64, and add on float64.  `init` is a device array of one value per
+// channel, so a streaming caller carries each channel's boundary value from
+// one segment into the next without a host round trip (for these ops,
+// scan(x, init = carry) == combine(carry, scan(x, init = identity)) before the
+// first flag).  `reverse` maps logical index j to n-1-j, so a right-to-left
 // scan (next_marked) needs no flipped copies.
 //
 // Design: the TPU kernel walks its grid in order and threads a carry through
@@ -25,7 +29,7 @@
 // op needs an identity element; keepleft, which has none, works unchanged.
 //
 // Bound: device memory.  Per channel, x is read twice (K1, K3) and out
-// written once, 3 x 4 B/elem for int32 (3 x 8 B for float64), plus 1 B/elem
+// written once, 3 x 4 B/elem for int32 (3 x 8 B for int64 and float64), plus 1 B/elem
 // of flags per read pass; K2 touches only tiles/4096 of that.  A single-pass
 // decoupled look-back scan would cut the traffic to 2 passes.
 
@@ -175,11 +179,11 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, int OP>
 __global__ void __launch_bounds__(kCarryThreads)
     tile_carry(const T* __restrict__ agg_v, const uint8_t* __restrict__ agg_f,
-               T* __restrict__ carry, int64_t ntiles, T init) {
+               T* __restrict__ carry, int64_t ntiles, const T* __restrict__ init) {
   __shared__ T sv[kCarryThreads / 32];
   __shared__ int sf[kCarryThreads / 32];
   const int64_t c = blockIdx.x;
-  T run = init;  // scan of every tile before this chunk
+  T run = init[c];  // scan of every tile before this chunk
   for (int64_t base = 0; base < ntiles; base += kCarryThreads) {
     const int64_t t = base + threadIdx.x;
     T v = T(0);
@@ -233,7 +237,7 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int OP>
 int launch(const void* x, const void* flag, void* out, void* agg_v, void* agg_f, void* carry,
-           int64_t n, int C, T init, int reverse, cudaStream_t stream) {
+           const void* init, int64_t n, int C, int reverse, cudaStream_t stream) {
   const int64_t ntiles = (n + kTile - 1) / kTile;
   const dim3 grid((unsigned)ntiles, (unsigned)C);
   cudaError_t err;
@@ -241,11 +245,28 @@ int launch(const void* x, const void* flag, void* out, void* agg_v, void* agg_f,
       (const T*)x, (const uint8_t*)flag, (T*)agg_v, (uint8_t*)agg_f, n, reverse);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   tile_carry<T, OP><<<C, kCarryThreads, 0, stream>>>(
-      (const T*)agg_v, (const uint8_t*)agg_f, (T*)carry, ntiles, init);
+      (const T*)agg_v, (const uint8_t*)agg_f, (T*)carry, ntiles, (const T*)init);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   tile_scan<T, OP><<<grid, kThreads, 0, stream>>>(
       (const T*)x, (const uint8_t*)flag, (const T*)carry, (T*)out, n, reverse);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_op(int op, const void* x, const void* flag, void* out, void* agg_v, void* agg_f,
+              void* carry, const void* init, int64_t n, int C, int reverse, cudaStream_t s) {
+  switch (op) {
+    case ADD:
+      return launch<T, ADD>(x, flag, out, agg_v, agg_f, carry, init, n, C, reverse, s);
+    case MAX:
+      return launch<T, MAX>(x, flag, out, agg_v, agg_f, carry, init, n, C, reverse, s);
+    case OR:
+      return launch<T, OR>(x, flag, out, agg_v, agg_f, carry, init, n, C, reverse, s);
+    case KEEPLEFT:
+      return launch<T, KEEPLEFT>(x, flag, out, agg_v, agg_f, carry, init, n, C, reverse, s);
+    default:
+      return -1;
+  }
 }
 
 }  // namespace
@@ -256,32 +277,30 @@ extern "C" {
 // C * ceil(n / tile) elements.
 int bfq_seg_scan_tile(void) { return kTile; }
 
-// x, out: [C, n] int32; flag: [n] uint8; agg_v, carry: [C * tiles] int32;
-// agg_f: [C * tiles] uint8.  op: 0 add, 1 max, 2 or, 3 keepleft.
+// x, out: [C, n]; flag: [n] uint8; init: [C]; agg_v, carry: [C * tiles];
+// agg_f: [C * tiles] uint8.  x, out, init, agg_v and carry share the entry
+// point's type.  op: 0 add, 1 max, 2 or, 3 keepleft.
 // Returns a cudaError_t (0 on success, -1 for an unknown op).
 int bfq_seg_scan_i32(const void* x, const void* flag, void* out, void* agg_v, void* agg_f,
-                     void* carry, long long n, int C, int op, int init, int reverse,
+                     void* carry, const void* init, long long n, int C, int op, int reverse,
                      void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (op) {
-    case ADD:
-      return launch<int32_t, ADD>(x, flag, out, agg_v, agg_f, carry, n, C, init, reverse, s);
-    case MAX:
-      return launch<int32_t, MAX>(x, flag, out, agg_v, agg_f, carry, n, C, init, reverse, s);
-    case OR:
-      return launch<int32_t, OR>(x, flag, out, agg_v, agg_f, carry, n, C, init, reverse, s);
-    case KEEPLEFT:
-      return launch<int32_t, KEEPLEFT>(x, flag, out, agg_v, agg_f, carry, n, C, init, reverse,
-                                       s);
-    default:
-      return -1;
-  }
+  return launch_op<int32_t>(op, x, flag, out, agg_v, agg_f, carry, init, n, C, reverse,
+                            (cudaStream_t)stream);
+}
+
+// int64: the out-of-core path's segment coordinates beyond 2^31 positions.
+int bfq_seg_scan_i64(const void* x, const void* flag, void* out, void* agg_v, void* agg_f,
+                     void* carry, const void* init, long long n, int C, int op, int reverse,
+                     void* stream) {
+  return launch_op<long long>(op, x, flag, out, agg_v, agg_f, carry, init, n, C, reverse,
+                              (cudaStream_t)stream);
 }
 
 // float64 add only (the mode-1 error sums).
 int bfq_seg_scan_f64(const void* x, const void* flag, void* out, void* agg_v, void* agg_f,
-                     void* carry, long long n, int C, double init, int reverse, void* stream) {
-  return launch<double, ADD>(x, flag, out, agg_v, agg_f, carry, n, C, init, reverse,
+                     void* carry, const void* init, long long n, int C, int reverse,
+                     void* stream) {
+  return launch<double, ADD>(x, flag, out, agg_v, agg_f, carry, init, n, C, reverse,
                              (cudaStream_t)stream);
 }
 

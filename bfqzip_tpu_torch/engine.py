@@ -12,6 +12,7 @@ from typing import Tuple
 
 import torch
 
+from bfqzip_tpu import alphabet
 from bfqzip_tpu.config import SmoothConfig
 from bfqzip_tpu.io.fastq import ReadBatch
 from bfqzip_tpu_torch.convert import batch_to_tensors
@@ -20,13 +21,24 @@ from bfqzip_tpu_torch.ops.smooth import lf_and_pre, smooth
 from bfqzip_tpu_torch.ops.suffix import EbwtDevice, build_ebwt
 
 
+def pre_of(ebwt: EbwtDevice) -> torch.Tensor:
+    """The symbol preceding each BWT position, bwt[LF[i]], which is the text
+    symbol at SA[i]-2: the flat build carries it through its sort; for the
+    doubling build it is one gather through SA (an LF array would cost a
+    [5, n_pad] scan)."""
+    if ebwt.pre is not None:
+        return ebwt.pre
+    t = ebwt.text[torch.remainder(ebwt.sa.to(torch.int64) - 2, ebwt.text.shape[0])]
+    return torch.where(t == 0, torch.full((), alphabet.TERM, dtype=torch.uint8, device=t.device), t - 1)
+
+
 def smooth_step(
     seqs: torch.Tensor, quals: torch.Tensor, lengths: torch.Tensor, cfg: SmoothConfig
 ) -> Tuple[InvertOut, dict]:
     """The full device-side pipeline on a padded [N, L] read batch."""
     n_reads, width = seqs.shape
     ebwt = build_ebwt(seqs, quals, lengths)
-    out = smooth(ebwt, cfg, pre=ebwt.pre)
+    out = smooth(ebwt, cfg, pre=pre_of(ebwt))
     inv = invert_via_sa(
         ebwt.sa, ebwt.bwt, out.bwt_sub, out.qs, ebwt.n, n_reads, width, binning=cfg.binning
     )

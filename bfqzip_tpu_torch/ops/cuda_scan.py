@@ -8,7 +8,8 @@ plain PyTorch version of the same function is ops/scan.py::seg_scan; the
 dispatch between the two lives in ops/scan.py::LocalScanOps.
 
 `launches` counts the calls that launched the kernel (its three passes count
-as one), so a run can show that it went through the kernel.
+as one), so a run can show that it went through the kernel;
+`launches_by_dtype` splits the same count by the scanned dtype.
 """
 
 from __future__ import annotations
@@ -20,8 +21,10 @@ import torch
 from bfqzip_tpu_torch.utils import cuda_build
 
 OPS = {"add": 0, "max": 1, "or": 2, "keepleft": 3}
+_INT_ENTRY = {torch.int32: "bfq_seg_scan_i32", torch.int64: "bfq_seg_scan_i64"}
 
 launches = 0
+launches_by_dtype: dict[str, int] = {}
 
 _lib = None
 
@@ -31,10 +34,12 @@ def _library():
     if _lib is None:
         lib = cuda_build.load("seg_scan")
         ptr = ctypes.c_void_p
-        common = [ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong, ctypes.c_int]
-        lib.bfq_seg_scan_i32.argtypes = common + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr]
-        lib.bfq_seg_scan_i32.restype = ctypes.c_int
-        lib.bfq_seg_scan_f64.argtypes = common + [ctypes.c_double, ctypes.c_int, ptr]
+        common = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong, ctypes.c_int]
+        for name in _INT_ENTRY.values():
+            fn = getattr(lib, name)
+            fn.argtypes = common + [ctypes.c_int, ctypes.c_int, ptr]
+            fn.restype = ctypes.c_int
+        lib.bfq_seg_scan_f64.argtypes = common + [ctypes.c_int, ptr]
         lib.bfq_seg_scan_f64.restype = ctypes.c_int
         lib.bfq_seg_scan_tile.argtypes = []
         lib.bfq_seg_scan_tile.restype = ctypes.c_int
@@ -42,12 +47,27 @@ def _library():
     return _lib
 
 
+def _channel_init(init, dtype: torch.dtype, C: int, device) -> torch.Tensor:
+    """`init` as a contiguous [C] tensor of `dtype` on `device`: a Python
+    number fills it; a 0-d or [C] tensor (a carry left on the device by the
+    previous segment) is broadcast, never copied to the host."""
+    if not isinstance(init, torch.Tensor):
+        return torch.full((C,), init, dtype=dtype, device=device)
+    if init.device != torch.device(device):
+        raise ValueError(f"init lies on {init.device}, x on {device}")
+    if init.dim() > 1 or (init.dim() == 1 and init.shape[0] != C):
+        raise ValueError(f"init must be 0-d or [{C}], got shape {tuple(init.shape)}")
+    return init.to(dtype).expand(C).contiguous()
+
+
 def seg_scan(x: torch.Tensor, flag: torch.Tensor, op: str, init, reverse: bool = False) -> torch.Tensor:
     """Inclusive segmented scan of x ([n] or channel-first [C, n]) on the card.
 
     flag: [n] bool or uint8, shared by all channels; a nonzero flag restarts
-    the scan at its position.  op: add/max/or/keepleft on int32, add on
-    float64.  reverse scans from position n-1 down to 0.
+    the scan at its position.  op: add/max/or/keepleft on int32 and int64,
+    add on float64.  init: a number, or a 0-d or [C] tensor on x's device
+    (each channel's value before its first flag).  reverse scans from
+    position n-1 down to 0.
     """
     global launches
     if not (x.is_cuda and flag.is_cuda and x.device == flag.device):
@@ -57,8 +77,8 @@ def seg_scan(x: torch.Tensor, flag: torch.Tensor, op: str, init, reverse: bool =
     if x.dtype == torch.float64:
         if op != "add":
             raise ValueError(f"float64 scan supports add only, got {op!r}")
-    elif x.dtype != torch.int32:
-        raise TypeError(f"seg_scan kernel takes int32 or float64, got {x.dtype}")
+    elif x.dtype not in _INT_ENTRY:
+        raise TypeError(f"seg_scan kernel takes int32, int64 or float64, got {x.dtype}")
     if x.dim() not in (1, 2):
         raise ValueError(f"x must be [n] or [C, n], got shape {tuple(x.shape)}")
     n = x.shape[-1]
@@ -71,6 +91,7 @@ def seg_scan(x: torch.Tensor, flag: torch.Tensor, op: str, init, reverse: bool =
         raise TypeError(f"flag must be bool or uint8, got {flag.dtype}")
     if not (x.is_contiguous() and flag.is_contiguous()):
         raise ValueError("seg_scan kernel needs contiguous x and flag")
+    init_c = _channel_init(init, x.dtype, C, x.device)
     out = torch.empty_like(x)
     if n == 0 or C == 0:
         return out
@@ -83,12 +104,14 @@ def seg_scan(x: torch.Tensor, flag: torch.Tensor, op: str, init, reverse: bool =
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         args = (x.data_ptr(), flag.data_ptr(), out.data_ptr(), agg_v.data_ptr(),
-                agg_f.data_ptr(), carry.data_ptr(), n, C)
+                agg_f.data_ptr(), carry.data_ptr(), init_c.data_ptr(), n, C)
         if x.dtype == torch.float64:
-            err = lib.bfq_seg_scan_f64(*args, float(init), int(reverse), stream)
+            err = lib.bfq_seg_scan_f64(*args, int(reverse), stream)
         else:
-            err = lib.bfq_seg_scan_i32(*args, OPS[op], int(init), int(reverse), stream)
+            err = getattr(lib, _INT_ENTRY[x.dtype])(*args, OPS[op], int(reverse), stream)
     if err != 0:
         raise RuntimeError(f"seg_scan kernel launch failed: cudaError {err}")
     launches += 1
+    name = str(x.dtype).removeprefix("torch.")
+    launches_by_dtype[name] = launches_by_dtype.get(name, 0) + 1
     return out

@@ -10,10 +10,13 @@ one flag row serves every channel.  `op` names combine: "add", "max", "or"
 or "keepleft" (combine(a, b) = a, so a keep-left scan repeats the value at
 the most recent flag, and gives init before the first).
 
+`init` is a number or a 0-d or [C] tensor: a carry that a streaming caller
+(external.SeqChunkOps) leaves on the device, one value per channel.
+
 `seg_scan` below is the plain PyTorch version: a Hillis-Steele segmented
-network, exact for integers.  `LocalScanOps` sends every scan on a CUDA
-tensor through the hand-written kernel (ops/cuda_scan.py) and uses the plain
-version only for tensors on the CPU.
+network, exact for integers (int32 and int64).  `LocalScanOps` sends every
+scan on a CUDA tensor through the hand-written kernel (ops/cuda_scan.py) and
+uses the plain version only for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -46,7 +49,12 @@ def seg_scan(x: torch.Tensor, flag: torch.Tensor, op: str, init) -> torch.Tensor
         f = torch.cat([f[:d], f[d:] | f[:-d]])
         d <<= 1
     # positions with no flag at or before them continue from init
-    init_t = torch.full((), init, dtype=x.dtype, device=x.device)
+    if isinstance(init, torch.Tensor):
+        init_t = init.to(device=x.device, dtype=x.dtype)
+        if init_t.dim() == 1 and x.dim() == 2:
+            init_t = init_t[:, None]
+    else:
+        init_t = torch.full((), init, dtype=x.dtype, device=x.device)
     return torch.where(f, v, combine(init_t, v))
 
 

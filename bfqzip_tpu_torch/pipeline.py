@@ -12,8 +12,10 @@ explicit torch device and the host codecs on the port's jax-free rANS:
                                             those binaries exist)
 
 Block mode (-t) always runs its blocks one after another on the device.
-Out-of-core (`ext_mem_mb`) and the sequence-sharded mesh (`mesh_shards`)
-are not ported yet and raise NotImplementedError.
+Out-of-core (`ext_mem_mb`) fuses steps 1-3 in external.smooth_fastq_external
+under a device-memory budget, as the JAX pipeline does, and skips the
+artifacts.  The sequence-sharded mesh (`mesh_shards`) is not ported yet and
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -346,11 +348,6 @@ def run_pipeline(
 ) -> PipelineResult:
     """The full compression pipeline on `device` (a CUDA device without a
     card raises)."""
-    if ext_mem_mb:
-        raise NotImplementedError(
-            "out-of-core mode (ext_mem_mb) is not ported to bfqzip_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 11)"
-        )
     if mesh_shards:
         raise NotImplementedError(
             "the sequence-sharded mesh (mesh_shards) is not ported to bfqzip_tpu_torch yet "
@@ -362,8 +359,18 @@ def run_pipeline(
     log.command_line()
 
     # ---- input / validation (checkFASTQ.py semantics via the parser) ----
+    spill = None
     with log.step("read FASTQ"):
-        batches = [read_fastq(p) for p in inputs]
+        if ext_mem_mb and len(inputs) == 1 and not cfg.original:
+            # out-of-core runs parse in record-aligned slabs straight into
+            # spill-backed arrays, so the input never needs twice its size
+            # of host RAM
+            from bfqzip_tpu.io.spill import Spill, read_fastq_spill
+
+            spill = Spill()
+            batches = [read_fastq_spill(inputs[0], spill, with_headers=True)]
+        else:
+            batches = [read_fastq(p) for p in inputs]
     if check:
         for b in batches:
             b.validate()
@@ -384,6 +391,32 @@ def run_pipeline(
                 batches = [reorder_batch(batches[0], mode=reorder)]
 
     batch = batches[0] if len(batches) == 1 else _concat(batches)
+
+    # ---- out-of-core: chunked device sorts + native host merge + streaming
+    # smoothing under a device-memory budget; steps 1-3 fuse ----
+    if ext_mem_mb and not cfg.original:
+        from bfqzip_tpu_torch.external import smooth_fastq_external
+
+        ext_report: Dict[str, object] = {}
+        try:
+            with log.step(f"steps1-3: external memory, budget {ext_mem_mb} MB"):
+                smoothed, stats = smooth_fastq_external(
+                    batch, cfg.smooth, mem_bytes=ext_mem_mb << 20, device=device, spill=spill,
+                    report=ext_report,
+                )
+            headers_on = cfg.headers or cfg.mode == 3
+            if headers_on and batch.headers is not None:
+                with open(base + ".h", "wb") as f:
+                    f.write(b"\n".join(batch.headers) + b"\n")
+            hdrs = batch.headers if headers_on else None
+            with open(base + ".fq", "wb") as f:
+                f.write(format_fastq(smoothed, headers=hdrs))
+        finally:
+            if spill is not None:
+                spill.close()
+        result = _finish_pipeline(inputs, cfg, base, log, stats, paired_split)
+        result.report["external"] = ext_report  # chunk / segment counts, stage seconds and RSS
+        return result
 
     # ---- step 1 with artifact caching, content-keyed ----
     if cfg.rebuild or not _artifacts_exist(base, _fingerprint(batch)):

@@ -7,11 +7,15 @@ Phases, each printed on its own line; the first failure exits non-zero:
   1. environment  card name and power limit, torch/CUDA/nvcc versions, triton
   2. build        nvcc builds csrc/seg_scan.cu from the checkout
   3. kernel       the CUDA seg_scan against its plain PyTorch version on the
-                  card: every op/dtype, C in {1, 5}, both directions, five
-                  sizes and five flag patterns; integers bit-exact, float64
-                  within 1e-12 relative error; kernel and plain ms at 20.4M
-  4. goldens      the 18 reference-binary goldens of width <= 322 through
-                  smooth_fastq(device="cuda"), byte-equal
+                  card: every op/dtype (int32 and int64 add/max/or/keepleft,
+                  int64 values past 2^31, float64 add), C in {1, 5}, both
+                  directions, five sizes and five flag patterns, then a
+                  random per-channel tensor init (the out-of-core carry) for
+                  every op/dtype pair; integers bit-exact, float64 within
+                  1e-12 relative error; kernel and plain ms at 20.4M
+  4. goldens      all 24 reference-binary goldens through
+                  smooth_fastq(device="cuda"), byte-equal (synth_long's
+                  400-600 bp reads through the doubling build)
   5. real size    2M x 101 bp realistic reads: warm-up + 3 timed
                   smooth_fastq runs, stage times, peak memory, kernel launch
                   counts, the identity round trip and kernel-vs-plain smooth
@@ -23,6 +27,25 @@ Phases, each printed on its own line; the first failure exits non-zero:
                   that skips step 1 with the same bytes, lf_array / smooth /
                   LF walk timed alone; then 200K reads through --m3,
                   --restore and --decompress, byte-equal, with MB/s
+  7. long reads   300K x 600 bp through the doubling build: smooth_fastq
+                  with its seg_scan launches, build / smooth / invert ms,
+                  peak device bytes, the identity round trip, changed bases
+                  == modified, kernel-vs-plain smooth
+  8. external     the out-of-core path: (a) the phase-6 FASTQ through
+                  cli --ext-mem --mem 4096 -0, byte-equal to phase 6's
+                  in-core .fq, >= 8 chunks and >= 4 segments, peak device
+                  bytes within the budget; (b) 500K reads with
+                  BFQ_EXT_SA64=1 (int64 coordinates and kernel scans) equal
+                  to the int32 route; (c) 4M x 101 bp (404M positions, more
+                  than one card holds in memory) under an 8 GiB budget with
+                  spill files: stage seconds, peak device bytes within the
+                  budget, peak host RSS, bases/s, launches per segment;
+                  (d) a chunk sort's peak bytes per position at widths
+                  101-1000 bp within the constant that sizes the chunks, and
+                  400K x 250 bp under a 2 GiB budget, peak within it and
+                  byte-equal to smooth_fastq.  In (a), (c) and (d) one
+                  middle segment is rerun with the plain scans on its
+                  recorded window and carries: every output equal
 Then a JSON line describing each kernel, and last the result line
 {"ok": true, "device": {...}}.  Imports no jax.
 """
@@ -31,6 +54,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -42,6 +66,13 @@ REAL_READS, REAL_LEN = 2_000_000, 101
 # the host codecs encode ~2.8 MB/s over the three streams on the host of an
 # NVIDIA H100 80GB HBM3 at 700 W (PERF.md), so their depth is cut
 CODEC_READS = 200_000
+LONG_READS, LONG_LEN = 300_000, 600  # 180.3M suffix positions
+SA64_READS = 500_000
+BIG_READS = 4_000_000  # 404M positions: the in-core engine would need ~80 GB
+SEG_CHECKED = 4  # the out-of-core segment held against the plain scans (of 10)
+BUDGET_WIDTHS = (101, 151, 201, 251, 323, 330, 600, 1000)  # flat to 323 bp, then doubling
+BUDGET_CHUNK_POS = 20_000_000  # positions per measured chunk sort
+WIDE_READS, WIDE_LEN = 400_000, 250  # 100.4M positions under a 2 GiB budget
 WORK = os.path.join(ROOT, "build", "chip_smoke")  # gitignored
 
 
@@ -120,9 +151,42 @@ def _values(op: str, dtype, shape, gen):
 
     if dtype == torch.float64:
         return torch.rand(shape, generator=gen, device="cuda", dtype=torch.float64)
-    lo, hi = {"add": (0, 100), "max": (-1000, 1000), "or": (0, 2**31 - 1),
-              "keepleft": (-(2**31), 2**31 - 1)}[op]
-    return torch.randint(lo, hi, shape, generator=gen, device="cuda", dtype=torch.int32)
+    if dtype == torch.int64:  # values past 2^31, as the out-of-core coordinates
+        lo, hi = {"add": (0, 2**33), "max": (-(2**40), 2**40), "or": (0, 2**62),
+                  "keepleft": (-(2**63), 2**63 - 1)}[op]
+    else:
+        lo, hi = {"add": (0, 100), "max": (-1000, 1000), "or": (0, 2**31 - 1),
+                  "keepleft": (-(2**31), 2**31 - 1)}[op]
+    return torch.randint(lo, hi, shape, generator=gen, device="cuda", dtype=dtype)
+
+
+def _check(got, want, case: str) -> float:
+    """Bit-exact for integers, 1e-12 relative for float64; the max abs error."""
+    import torch
+
+    torch.cuda.synchronize()
+    if got.dtype == torch.float64:
+        err = (got - want).abs()
+        rel = (err / want.abs().clamp_min(1e-300)).max().item()
+        if rel > 1e-12:
+            fail(f"kernel vs plain {case}: relative error {rel}")
+        return err.max().item()
+    if not torch.equal(got, want):
+        fail(f"kernel vs plain {case}: not bit-exact")
+    return 0.0
+
+
+def plain_ops():
+    """A LocalScanOps whose every scan is the plain version, also on the card."""
+    from bfqzip_tpu_torch.ops.scan import LocalScanOps, seg_scan
+
+    class PlainScanOps(LocalScanOps):
+        def _scan(self, x, flag, op, init, reverse=False):
+            if reverse:
+                return seg_scan(x.flip(-1), flag.flip(0), op, init).flip(-1)
+            return seg_scan(x, flag, op, init)
+
+    return PlainScanOps()
 
 
 def kernel_vs_plain() -> float:
@@ -133,9 +197,12 @@ def kernel_vs_plain() -> float:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    int64_min = torch.iinfo(torch.int64).min
     pairs = [("add", torch.int32, 0), ("max", torch.int32, INT32_MIN), ("or", torch.int32, 0),
-             ("keepleft", torch.int32, 0), ("add", torch.float64, 0.0)]
-    max_abs, cases, timings = 0.0, 0, []
+             ("keepleft", torch.int32, 0), ("add", torch.int64, 0), ("max", torch.int64, int64_min),
+             ("or", torch.int64, 0), ("keepleft", torch.int64, 0), ("add", torch.float64, 0.0)]
+    plain = plain_ops()
+    max_abs, cases, carry_cases, timings = 0.0, 0, 0, []
     for op, dtype, init in pairs:
         for C in (1, 5):
             for reverse in (False, True):
@@ -145,22 +212,9 @@ def kernel_vs_plain() -> float:
                         x = _values(op, dtype, shape, gen)
                         f = _flags(pattern, n, gen)
                         got = cuda_scan.seg_scan(x, f, op, init, reverse)
-                        if reverse:
-                            want = seg_scan(x.flip(-1), f.flip(0), op, init).flip(-1)
-                        else:
-                            want = seg_scan(x, f, op, init)
-                        torch.cuda.synchronize()
+                        want = plain._scan(x, f, op, init, reverse)
                         case = f"{op}/{dtype}/C={C}/rev={reverse}/n={n}/{pattern}"
-                        if dtype == torch.float64:
-                            err = (got - want).abs()
-                            rel = (err / want.abs().clamp_min(1e-300)).max().item()
-                            max_abs = max(max_abs, err.max().item())
-                            if rel > 1e-12:
-                                fail(f"kernel vs plain {case}: relative error {rel}")
-                        else:
-                            if not torch.equal(got, want):
-                                fail(f"kernel vs plain {case}: not bit-exact")
-                            max_abs = max(max_abs, (got.long() - want.long()).abs().max().item())
+                        max_abs = max(max_abs, _check(got, want, case))
                         cases += 1
                         if n == N_BENCH and pattern == "dense":
                             timings.append({
@@ -170,7 +224,22 @@ def kernel_vs_plain() -> float:
                                 "plain_ms": cuda_ms(lambda: seg_scan(x, f, op, init), 3),
                             })
                         del x, f, got, want
-    phase("kernel", cases=cases, max_abs_err=max_abs, timings=timings)
+                # a random per-channel carry as init, on the card, as the
+                # out-of-core segments pass it
+                for n in (1, 4097, 1_000_003):
+                    for pattern in ("none", "dense"):
+                        shape = (n,) if C == 1 else (C, n)
+                        x = _values(op, dtype, shape, gen)
+                        f = _flags(pattern, n, gen)
+                        carry = _values(op, dtype, (C,), gen)
+                        if C == 1 and n > 1:
+                            carry = carry[0]  # a 0-d carry, as SeqChunkOps records one
+                        got = cuda_scan.seg_scan(x, f, op, carry, reverse)
+                        want = plain._scan(x, f, op, carry, reverse)
+                        case = f"carry {op}/{dtype}/C={C}/rev={reverse}/n={n}/{pattern}"
+                        max_abs = max(max_abs, _check(got, want, case))
+                        carry_cases += 1
+    phase("kernel", cases=cases, carry_cases=carry_cases, max_abs_err=max_abs, timings=timings)
     return max_abs
 
 
@@ -183,7 +252,7 @@ def goldens() -> None:
             "m3b0": SmoothConfig(mode=3), "m2b1": SmoothConfig(binning=True),
             "m2b0h": SmoothConfig()}
     done = []
-    for ds in ("example", "example_r1", "synth_var"):
+    for ds in ("example", "example_r1", "synth_var", "synth_long"):
         batch = read_fastq(os.path.join(GOLDEN, f"{ds}.in.fastq"))
         for tag, cfg in cfgs.items():
             out, _ = smooth_fastq(batch, cfg, device="cuda")
@@ -192,12 +261,14 @@ def goldens() -> None:
                 if got != fh.read():
                     fail(f"golden {ds}.{tag} differs")
             done.append(f"{ds}.{tag}")
+    if len(done) != 24:
+        fail(f"{len(done)} goldens checked, expected 24")
     phase("goldens", byte_equal=len(done), names=done)
 
 
-def real_batch():
-    """The 2M x 101 bp realistic reads of phases 5 and 6, and the seconds
-    taken to make them."""
+def real_batch(n_reads: int = REAL_READS, read_len: int = REAL_LEN):
+    """Realistic reads from tools/make_realistic.py (4.6 Mb genome, seed 0),
+    and the seconds taken to make them."""
     import numpy as np
 
     sys.path.insert(0, os.path.join(ROOT, "tools"))
@@ -206,9 +277,9 @@ def real_batch():
     from bfqzip_tpu_torch.io import ReadBatch, encode
 
     t = time.time()
-    seq_ascii, quals = make(REAL_READS, REAL_LEN, 4.6, 0, 0.005, 0.001)
+    seq_ascii, quals = make(n_reads, read_len, 4.6, 0, 0.005, 0.001)
     batch = ReadBatch(seqs=encode(seq_ascii), quals=quals,
-                      lengths=np.full(REAL_READS, REAL_LEN, np.int32))
+                      lengths=np.full(n_reads, read_len, np.int32))
     return batch, time.time() - t
 
 
@@ -221,7 +292,7 @@ def real_size(batch, t_data: float) -> dict:
     from bfqzip_tpu_torch.engine import smooth_fastq
     from bfqzip_tpu_torch.ops import cuda_scan
     from bfqzip_tpu_torch.ops.invert import invert_via_sa
-    from bfqzip_tpu_torch.ops.scan import LocalScanOps, seg_scan
+    from bfqzip_tpu_torch.ops.scan import seg_scan
     from bfqzip_tpu_torch.ops.smooth import smooth
     from bfqzip_tpu_torch.ops.suffix import build_ebwt
 
@@ -277,13 +348,7 @@ def real_size(batch, t_data: float) -> dict:
         fail("identity round trip differs from the input reads")
 
     # kernel against the plain path through the whole smoother
-    class PlainScanOps(LocalScanOps):
-        def _scan(self, x, flag, op, init, reverse=False):
-            if reverse:
-                return seg_scan(x.flip(-1), flag.flip(0), op, init).flip(-1)
-            return seg_scan(x, flag, op, init)
-
-    plain = smooth(ebwt, cfg, pre=ebwt.pre, ops=PlainScanOps())
+    plain = smooth(ebwt, cfg, pre=ebwt.pre, ops=plain_ops())
     if not (torch.equal(plain.bwt_sub, sm.bwt_sub) and torch.equal(plain.qs, sm.qs)):
         fail("smooth with the kernel differs from smooth with the plain scans")
     if {k: int(v) for k, v in plain.stats.items()} != {k: int(v) for k, v in sm.stats.items()}:
@@ -470,6 +535,363 @@ def cli_path(batch, native_make) -> dict:
     return res
 
 
+def long_reads() -> dict:
+    """Phase 7: 300K x 600 bp through smooth_fastq on the doubling build."""
+    import numpy as np
+    import torch
+
+    from bfqzip_tpu_torch import SmoothConfig
+    from bfqzip_tpu_torch.convert import batch_to_tensors
+    from bfqzip_tpu_torch.engine import pre_of, smooth_fastq
+    from bfqzip_tpu_torch.ops import cuda_scan
+    from bfqzip_tpu_torch.ops.invert import invert_via_sa
+    from bfqzip_tpu_torch.ops.smooth import smooth
+    from bfqzip_tpu_torch.ops.suffix import build_ebwt, build_route
+
+    if build_route(LONG_LEN) != "doubling":
+        fail("the long-read phase must take the doubling build")
+    batch, t_data = real_batch(LONG_READS, LONG_LEN)
+    cfg = SmoothConfig()
+    smooth_fastq(batch, cfg, device="cuda")  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_scan.launches = 0
+    t = time.perf_counter()
+    out, stats = smooth_fastq(batch, cfg, device="cuda")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    launches = cuda_scan.launches
+    peak = torch.cuda.max_memory_allocated()
+    if launches < 5:
+        fail(f"seg_scan launched {launches} times in the long-read smooth_fastq, expected >= 5")
+    if out.seqs.shape != batch.seqs.shape or not np.array_equal(out.lengths, batch.lengths):
+        fail("long-read output has the wrong shape or read lengths")
+    changed = int((out.seqs != batch.seqs).sum())
+    if changed != stats["modified"] or stats["num_clust"] == 0:
+        fail(f"long reads: {changed} bases changed for modified={stats['modified']}")
+
+    seqs, qs_in, lengths = batch_to_tensors(batch, "cuda")
+    stage = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        stage[name] = (time.perf_counter() - t0) * 1e3
+        return r
+
+    ebwt = timed("build_ms", lambda: build_ebwt(seqs, qs_in, lengths))
+    if ebwt.pre is not None:
+        fail("the doubling build carries no pre")
+    pre = pre_of(ebwt)
+    sm = timed("smooth_ms", lambda: smooth(ebwt, cfg, pre=pre))
+    timed("invert_ms", lambda: invert_via_sa(ebwt.sa, ebwt.bwt, sm.bwt_sub, sm.qs, ebwt.n,
+                                             LONG_READS, LONG_LEN))
+    ident = invert_via_sa(ebwt.sa, ebwt.bwt, ebwt.bwt, ebwt.qs, ebwt.n, LONG_READS, LONG_LEN)
+    if not (torch.equal(ident.seqs, seqs) and torch.equal(ident.quals, qs_in)
+            and torch.equal(ident.lengths, lengths)):
+        fail("long reads: identity round trip differs from the input")
+    del ident
+    plain = smooth(ebwt, cfg, pre=pre, ops=plain_ops())
+    if not (torch.equal(plain.bwt_sub, sm.bwt_sub) and torch.equal(plain.qs, sm.qs)):
+        fail("long reads: smooth with the kernel differs from smooth with the plain scans")
+    if {k: int(v) for k, v in plain.stats.items()} != {k: int(v) for k, v in sm.stats.items()}:
+        fail("long reads: smooth stats differ between kernel and plain scans")
+    n_pad = ebwt.bwt.shape[0]
+    del plain, sm, ebwt, pre, seqs, qs_in, lengths
+    res = {"reads": LONG_READS, "read_len": LONG_LEN, "n_pad": n_pad, "data_s": t_data,
+           "run_s": run_s, "bases_per_s": LONG_READS * LONG_LEN / run_s, **stage,
+           "peak_bytes": peak, "launches": launches, "changed": changed, "stats": stats,
+           "identity": True, "kernel_vs_plain_smooth": True}
+    phase("long_reads", **res)
+    if peak > 70e9:
+        fail(f"long-read peak {peak} bytes passes 70 GB: cut LONG_READS")
+    return res
+
+
+class _RssSampler:
+    """The process's resident set sampled every 50 ms on a thread: the peak
+    of a stretch of work, where getrusage gives only the peak since the
+    process began (data generation included)."""
+
+    def __init__(self):
+        import threading
+
+        self.peak = self.start = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    @staticmethod
+    def _rss() -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def _run(self):
+        while not self._stop.wait(0.05):
+            self.peak = max(self.peak, self._rss())
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+        return False
+
+
+def _map_tensors(obj, fn):
+    """obj with fn applied to every tensor inside its tuples, lists and dicts."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_map_tensors(o, fn) for o in obj)
+    if isinstance(obj, dict):
+        return {k: _map_tensors(v, fn) for k, v in obj.items()}
+    return obj
+
+
+def _flat_tensors(obj, path="out"):
+    """(path, tensor) pairs of every tensor inside obj."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return [(path, obj)]
+    if isinstance(obj, (list, tuple)):
+        return [p for i, o in enumerate(obj) for p in _flat_tensors(o, f"{path}[{i}]")]
+    if isinstance(obj, dict):
+        return [p for k, v in obj.items() for p in _flat_tensors(v, f"{path}[{k}]")]
+    return []
+
+
+class _SegmentCheck:
+    """One segment of an out-of-core run held against the plain scans: while
+    active, the call number `index` of external._part1_segment keeps its
+    inputs (window, base, carries in) and its kernel outputs (packed words,
+    stats, carries out, ...) on the host; check() reruns that segment on the
+    card with every scan the plain version and requires each output equal."""
+
+    def __init__(self, index: int):
+        from bfqzip_tpu_torch import external
+
+        self.external, self.index, self.calls, self.record = external, index, 0, None
+        self._part1 = external._part1_segment
+
+    def __enter__(self):
+        def recording(*args, **kwargs):
+            out = self._part1(*args, **kwargs)
+            if self.calls == self.index:
+                self.record = _map_tensors((args, kwargs, out), lambda t: t.cpu())
+            self.calls += 1
+            return out
+
+        self.external._part1_segment = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.external._part1_segment = self._part1
+        return False
+
+    def check(self, what: str) -> dict:
+        import torch
+
+        if self.record is None or self.index >= self.calls - 1:
+            fail(f"{what}: segment {self.index} of {self.calls} is not a middle segment")
+        args, kwargs, want = _map_tensors(self.record, lambda t: t.cuda())
+        got = _flat_tensors(self._part1(*args, **kwargs, scans=plain_ops()))
+        want = _flat_tensors(want)
+        if [p for p, _ in got] != [p for p, _ in want]:
+            fail(f"{what}: the plain-scan segment returned other outputs")
+        for (path, g), (_, w) in zip(got, want):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                fail(f"{what}: segment {self.index}, {path} differs between kernel and plain scans")
+        return {"segment": self.index, "of": self.calls, "window": int(args[0].shape[0]),
+                "carries_in": len(args[5]), "outputs_equal": len(want)}
+
+
+def external_path(real) -> dict:
+    """Phase 8: the out-of-core path, (a) through the CLI, (b) with int64
+    coordinates, (c) at a size one card cannot hold in memory, (d) the
+    device budget across read widths."""
+    import numpy as np
+    import torch
+
+    from bfqzip_tpu.io.spill import Spill
+    from bfqzip_tpu_torch import SmoothConfig
+    from bfqzip_tpu_torch.external import smooth_fastq_external
+    from bfqzip_tpu_torch.ops import cuda_scan
+
+    cfg = SmoothConfig()
+    res = {}
+
+    # (a) the CLI on phase 6's FASTQ, against phase 6's in-core .fq
+    budget_mb = 4096
+    reports = []
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    cuda_scan.launches = 0
+    out = os.path.join(WORK, "real_ext")
+    with _SegmentCheck(SEG_CHECKED) as seg_a:
+        cli_s = _cli([os.path.join(WORK, "real.fastq"), "-o", out, "-0", "--ext-mem",
+                      "--mem", str(budget_mb)], reports)
+    launches_a = cuda_scan.launches
+    rep = reports[0]["external"]
+    step = [p for p in reports[0]["phases"] if p["phase"].startswith("steps1-3")][0]
+    peak_a = step["peak_bytes_in_use"] - base_bytes
+    if _read(out + ".fq") != _read(os.path.join(WORK, "real.fq")):
+        fail("--ext-mem .fq differs from the in-core CLI's .fq at 2M reads")
+    if rep["n_chunks"] < 8 or rep["n_segments"] < 4:
+        fail(f"--ext-mem ran {rep['n_chunks']} chunks and {rep['n_segments']} segments, "
+             "expected >= 8 and >= 4")
+    if peak_a > budget_mb << 20:
+        fail(f"--ext-mem peak device bytes {peak_a} exceed the {budget_mb} MB budget")
+    if launches_a < 5 * rep["n_segments"]:
+        fail(f"seg_scan launched {launches_a} times over {rep['n_segments']} segments")
+    res["cli"] = {"reads": real["reads"], "budget_bytes": budget_mb << 20, "seconds": cli_s,
+                  "peak_device_bytes": peak_a, "launches": launches_a, "report": rep,
+                  "phases": _phases(reports[0]), "byte_equal_to_in_core": True,
+                  "segment_vs_plain": seg_a.check("--ext-mem at 2M reads")}
+
+    # (b) int64 coordinates against the int32 route
+    batch, _ = real_batch(SA64_READS, REAL_LEN)
+    mem = 1 << 30
+    routes = {}
+    for wide in (False, True):
+        os.environ["BFQ_EXT_SA64"] = "1" if wide else "0"
+        cuda_scan.launches_by_dtype.clear()
+        cuda_scan.launches = 0
+        routes[wide] = smooth_fastq_external(batch, cfg, mem, device="cuda") + (
+            cuda_scan.launches, dict(cuda_scan.launches_by_dtype))
+    os.environ.pop("BFQ_EXT_SA64")
+    (o32, s32, _, _), (o64, s64, launches_b, by_dtype) = routes[False], routes[True]
+    if not (np.array_equal(o32.seqs, o64.seqs) and np.array_equal(o32.quals, o64.quals)
+            and s32 == s64):
+        fail("BFQ_EXT_SA64=1 output or stats differ from the int32 route")
+    if by_dtype.get("int64", 0) == 0:
+        fail("the int64 route launched no int64 seg_scan")
+    res["sa64"] = {"reads": SA64_READS, "byte_equal": True, "launches": launches_b,
+                   "launches_by_dtype": by_dtype}
+    del batch, routes, o32, o64
+
+    # (c) 404M positions under an 8 GiB budget, with spill files
+    batch, t_data = real_batch(BIG_READS, REAL_LEN)
+    mem = 8 << 30
+    os.makedirs(WORK, exist_ok=True)
+    sp = Spill(dir=WORK)
+    free_disk = shutil.disk_usage(sp.dir).free
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_scan.launches = 0
+    rep = {}
+    t = time.perf_counter()
+    try:
+        with _RssSampler() as rss, _SegmentCheck(SEG_CHECKED) as seg_c:
+            out, stats = smooth_fastq_external(batch, cfg, mem, device="cuda", spill=sp, report=rep)
+        seconds = time.perf_counter() - t
+        peak_c = torch.cuda.max_memory_allocated() - base_bytes
+        launches_c = cuda_scan.launches
+        changed = int((np.asarray(out.seqs) != batch.seqs).sum())
+        spilled = isinstance(out.seqs, np.memmap)
+        del out
+    finally:
+        sp.close()
+    if changed != stats["modified"] or stats["num_clust"] == 0:
+        fail(f"out-of-core at {BIG_READS} reads: {changed} bases changed for "
+             f"modified={stats['modified']}")
+    if peak_c > mem:
+        fail(f"out-of-core peak device bytes {peak_c} exceed the {mem}-byte budget")
+    if launches_c < 5 * rep["n_segments"]:
+        fail(f"seg_scan launched {launches_c} times over {rep['n_segments']} segments")
+    res["big"] = {"reads": BIG_READS, "n_pad": BIG_READS * (REAL_LEN + 1), "data_s": t_data,
+                  "budget_bytes": mem, "seconds": seconds, "peak_device_bytes": peak_c,
+                  "bases_per_s": BIG_READS * REAL_LEN / seconds, "report": rep,
+                  "rss_before_bytes": rss.start, "peak_rss_bytes": rss.peak,
+                  "spilled": spilled, "spill_free_disk": free_disk,
+                  "launches": launches_c, "launches_per_segment": launches_c / rep["n_segments"],
+                  "changed": changed, "stats": stats,
+                  "segment_record_bytes": sum(t.nbytes for _, t in _flat_tensors(seg_c.record)),
+                  "segment_vs_plain": seg_c.check(f"out-of-core at {BIG_READS} reads")}
+    del batch
+    res["budget"] = budget_by_width(cfg)
+    res["launches"] = launches_a + launches_b + launches_c + res["budget"]["launches"]
+    phase("external", **res)
+    return res
+
+
+def budget_by_width(cfg) -> dict:
+    """Phase 8 (d): the device budget across read widths.  A chunk sort's
+    peak per position stays within the bytes per position that size the
+    chunks, at every width; then a whole out-of-core run at WIDE_LEN bp
+    stays within its budget and writes the in-core engine's bytes."""
+    import numpy as np
+    import torch
+
+    from bfqzip_tpu_torch import external
+    from bfqzip_tpu_torch.engine import smooth_fastq
+    from bfqzip_tpu_torch.io import ReadBatch
+    from bfqzip_tpu_torch.ops import cuda_scan
+    from bfqzip_tpu_torch.ops.suffix import build_route
+
+    rng = np.random.default_rng(1)
+    sorts = []
+    for width in BUDGET_WIDTHS:  # the build's memory does not depend on the bases
+        n_reads = BUDGET_CHUNK_POS // (width + 1)
+        b = ReadBatch(seqs=rng.integers(0, 4, (n_reads, width), dtype=np.uint8),
+                      quals=rng.integers(33, 75, (n_reads, width), dtype=np.uint8),
+                      lengths=np.full(n_reads, width, np.int32))
+        torch.cuda.synchronize()
+        base_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        external._sort_chunk(b, 0, n_reads, torch.device("cuda"))
+        torch.cuda.synchronize()
+        n_pad = n_reads * (width + 1)
+        per_pos = (torch.cuda.max_memory_allocated() - base_bytes) / n_pad
+        allowed = external._build_bytes_per_pos(width)
+        sorts.append({"width": width, "route": build_route(width), "n_pad": n_pad,
+                      "bytes_per_pos": per_pos, "allowed": allowed,
+                      "ms": (time.perf_counter() - t) * 1e3})
+        if per_pos > allowed:
+            fail(f"a chunk sort at {width} bp takes {per_pos:.1f} B/pos, "
+                 f"above the {allowed} that size its chunks")
+        del b
+
+    batch, t_data = real_batch(WIDE_READS, WIDE_LEN)
+    mem = 2 << 30
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_scan.launches = 0
+    rep = {}
+    t = time.perf_counter()
+    with _SegmentCheck(SEG_CHECKED) as seg:
+        out, stats = external.smooth_fastq_external(batch, cfg, mem, device="cuda", spill=False,
+                                                    report=rep)
+    seconds = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() - base_bytes
+    launches = cuda_scan.launches
+    if peak > mem:
+        fail(f"out-of-core at {WIDE_LEN} bp: peak device bytes {peak} exceed the {mem}-byte budget")
+    if rep["n_chunks"] < 8 or launches < 5 * rep["n_segments"]:
+        fail(f"out-of-core at {WIDE_LEN} bp: {rep['n_chunks']} chunks, {launches} seg_scan "
+             f"launches over {rep['n_segments']} segments")
+    ref, ref_stats = smooth_fastq(batch, cfg, device="cuda")
+    w = ref.max_len
+    if not (np.array_equal(out.seqs[:, :w], ref.seqs) and np.array_equal(out.quals[:, :w], ref.quals)
+            and stats == ref_stats):
+        fail(f"out-of-core at {WIDE_LEN} bp differs from the in-core engine")
+    res = {"chunk_sorts": sorts, "reads": WIDE_READS, "read_len": WIDE_LEN, "data_s": t_data,
+           "budget_bytes": mem, "seconds": seconds, "peak_device_bytes": peak, "report": rep,
+           "launches": launches, "byte_equal_to_in_core": True,
+           "segment_vs_plain": seg.check(f"out-of-core at {WIDE_LEN} bp")}
+    return res
+
+
 def native_make():
     """Start `make -B -C native` (the host codec library) in the background.
     -B rebuilds a copy left in the tree: it is built with -march=native and
@@ -499,12 +921,15 @@ def main() -> int:
     batch, t_data = real_batch()
     real = real_size(batch, t_data)
     cli = cli_path(batch, made)
+    del batch
+    long = long_reads()
+    ext = external_path(cli)
     if "jax" in sys.modules:
         fail("jax was imported")
     print(json.dumps({"kernels": [{
         "name": "seg_scan", "route": "cuda", "source": "bfqzip_tpu_torch/csrc/seg_scan.cu",
         "replaces": "bfqzip_tpu/ops/pallas_scan.py:89",
-        "launches": real["launches"] + cli["launches"],
+        "launches": real["launches"] + cli["launches"] + long["launches"] + ext["launches"],
         "max_abs_err": max_abs, "ms": real["scan_ms"], "plain_ms": real["scan_plain_ms"],
     }]}))
     print(smi)

@@ -1,7 +1,7 @@
 """The port's CLI: compress, restore and decompress run end to end in a
-process where jax cannot be imported; the parser's exit codes; the refused
---ext-mem / --mesh; and no silent CPU run when CUDA is asked for without a
-card."""
+process where jax cannot be imported; --ext-mem writes the JAX CLI's files;
+the parser's exit codes; the refused --mesh; and no silent CPU run when CUDA
+is asked for without a card."""
 
 import os
 import shutil
@@ -11,9 +11,13 @@ import sys
 import pytest
 import torch
 
+from bfqzip_tpu import cli as jax_cli
+from bfqzip_tpu.utils import native
 from bfqzip_tpu_torch import cli
 
 from conftest import golden_path
+from test_torch_pipeline import assert_same_outputs
+from torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -88,7 +92,7 @@ def test_bad_arguments_exit_2(tmp_path, capsys):
     assert "bfqzip_tpu_torch" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flags", [["--ext-mem"], ["--mesh", "4"]])
+@pytest.mark.parametrize("flags", [["--mesh", "4"]])
 def test_unported_flags_exit_2(tmp_path, capsys, flags):
     src = golden_path("example.in.fastq")
     assert cli.main([src, "-o", str(tmp_path / "o"), "--cpu", *flags]) == 2
@@ -103,3 +107,19 @@ def test_cuda_without_card_exits_nonzero(tmp_path, capsys, monkeypatch):
     assert rc != 0
     assert "cuda" in capsys.readouterr().err
     assert os.listdir(tmp_path) == []
+
+
+@pytest.mark.skipif(not native.ext_merge_available(), reason="native library not built")
+@pytest.mark.parametrize("flags", [["--m3"], ["-1", "--mem", "1"]])
+def test_ext_mem_writes_the_jax_cli_files(tmp_path, monkeypatch, flags):
+    """--ext-mem through both CLIs: every output file but the log is the
+    same bytes (a 1 MB budget splits the port's run into chunks and
+    segments)."""
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "jax_cache"))
+    src = str(tmp_path / "reads.fastq")
+    shutil.copyfile(golden_path("example.in.fastq"), src)
+    for pkg, main in (("jax", jax_cli.main), ("torch", cli.main)):
+        os.mkdir(tmp_path / pkg)
+        assert main([src, "-o", str(tmp_path / pkg / "out"), "--ext-mem", "--cpu", *flags]) == 0
+    assert_same_outputs(str(tmp_path / "torch" / "out"), str(tmp_path / "jax" / "out"))
+    assert "external memory" in open(tmp_path / "torch" / "out.log").read()

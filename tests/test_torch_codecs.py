@@ -16,6 +16,7 @@ from bfqzip_tpu_torch.models import dna_ebwt, headers
 from bfqzip_tpu_torch.ops import rans
 
 from conftest import golden_path
+from torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 LANES = (8, 64, 1024)
 

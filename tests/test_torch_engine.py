@@ -1,5 +1,6 @@
-"""The port's engine end to end on the CPU: byte-equal to the reference
-binary's goldens and equal to the JAX engine on random batches."""
+"""The port's engine end to end on the CPU: byte-equal to all 24 reference
+binary goldens (synth_long's 400-600 bp reads through the doubling build)
+and equal to the JAX engine on random batches."""
 
 import numpy as np
 import pytest
@@ -11,6 +12,7 @@ from bfqzip_tpu_torch.engine import smooth_fastq
 
 from conftest import golden_path
 from tests_util import tiny_batch
+from torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 _CFGS = {
     "m0b0": SmoothConfig(mode=0),
@@ -23,7 +25,7 @@ _CFGS = {
 
 
 @pytest.mark.parametrize("tag", list(_CFGS))
-@pytest.mark.parametrize("dataset", ["example", "example_r1", "synth_var"])
+@pytest.mark.parametrize("dataset", ["example", "example_r1", "synth_var", "synth_long"])
 def test_golden_byte_equality(dataset, tag):
     batch = read_fastq(golden_path(f"{dataset}.in.fastq"))
     out, _ = smooth_fastq(batch, _CFGS[tag], device="cpu")

@@ -15,6 +15,7 @@ import bfqzip_tpu_torch
 from bfqzip_tpu_torch.ops import cuda_scan
 from bfqzip_tpu_torch.ops.scan import LocalScanOps
 from bfqzip_tpu_torch.utils import cuda_build
+from torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 PKG_DIR = os.path.dirname(os.path.abspath(bfqzip_tpu_torch.__file__))
 REPO = os.path.dirname(PKG_DIR)
@@ -46,7 +47,7 @@ print("imported", len(sys.argv) - 1)
 
 def test_every_module_imports_with_jax_blocked():
     mods = _modules()
-    assert {"bfqzip_tpu_torch.engine", "bfqzip_tpu_torch.ops.cuda_scan",
+    assert {"bfqzip_tpu_torch.engine", "bfqzip_tpu_torch.external", "bfqzip_tpu_torch.ops.cuda_scan",
             "bfqzip_tpu_torch.utils.cuda_build"} <= set(mods)
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _BLOCK_JAX, *mods], cwd=REPO, env=env,

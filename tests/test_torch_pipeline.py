@@ -1,8 +1,9 @@
 """The port's pipeline against the JAX pipeline on example.in.fastq: every
 output file except the .log is byte-equal for modes 1, 2, 3 and binning;
 the stage-1 artifact cache (hit, rebuild, invalidation, and artifacts shared
-in both directions); restore / decompress round trips; the -D dump; and the
-refused out-of-core and mesh routes."""
+in both directions); restore / decompress round trips; the -D dump; the
+out-of-core route; the 6 long-read goldens through the artifacts; and the
+refused mesh route."""
 
 import os
 import shutil
@@ -10,11 +11,13 @@ import shutil
 import pytest
 
 from bfqzip_tpu.config import PipelineConfig, SmoothConfig
+from bfqzip_tpu.utils import native
 from bfqzip_tpu.pipeline import restore_fastq as jax_restore_fastq
 from bfqzip_tpu.pipeline import run_pipeline as jax_run_pipeline
 from bfqzip_tpu_torch.pipeline import decompress_stream, restore_fastq, run_pipeline
 
 from conftest import golden_path
+from torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 CFGS = {
     "m1": PipelineConfig(mode=1),
@@ -161,9 +164,46 @@ def test_original_copies_input(tmp_path):
     assert open(tmp_path / "torch.fq", "rb").read() == open(src, "rb").read()
 
 
-@pytest.mark.parametrize("kw, item", [({"ext_mem_mb": 64}, "item 11"), ({"mesh_shards": 4}, "item 12")])
+@pytest.mark.parametrize("kw, item", [({"mesh_shards": 4}, "item 12")])
 def test_unported_routes_raise(tmp_path, kw, item):
     src = golden_path("example.in.fastq")
     with pytest.raises(NotImplementedError, match=item):
         run_pipeline([src], PipelineConfig(mode=2), out_base=str(tmp_path / "o"), device="cpu", **kw)
     assert not os.path.exists(tmp_path / "o.fq")
+
+
+@pytest.mark.skipif(not native.ext_merge_available(), reason="native library not built")
+@pytest.mark.parametrize("mode", [2, 3])
+def test_ext_mem_route_byte_equal_to_jax(tmp_path, monkeypatch, mode):
+    """ext_mem_mb: spill-backed parse, steps 1-3 in smooth_fastq_external,
+    then steps 4-5; every file and the stats are the JAX pipeline's."""
+    src = str(tmp_path / "reads.fastq")
+    shutil.copyfile(golden_path("example.in.fastq"), src)
+    cfg = PipelineConfig(mode=mode)
+    jres = jax_run_pipeline([src], cfg, out_base=str(tmp_path / "jax"), ext_mem_mb=1)
+    tres = run_pipeline([src], cfg, out_base=str(tmp_path / "torch"), device="cpu", ext_mem_mb=1)
+    assert_same_outputs(str(tmp_path / "torch"), str(tmp_path / "jax"))
+    assert tres.stats == jres.stats and tres.stats["num_clust"] > 0
+    assert [p["phase"] for p in tres.report["phases"]] == \
+        [p["phase"].replace("jax", "torch") for p in jres.report["phases"]]
+    # without the native merge the route raises; it never runs in-core
+    monkeypatch.setattr(native, "ext_merge_available", lambda: False)
+    with pytest.raises(RuntimeError, match="native"):
+        run_pipeline([src], cfg, out_base=str(tmp_path / "again"), device="cpu", ext_mem_mb=1)
+    assert not os.path.exists(tmp_path / "again.fq")
+
+
+_LONG = {"m0b0": SmoothConfig(mode=0), "m1b0": SmoothConfig(mode=1), "m2b0": SmoothConfig(),
+         "m3b0": SmoothConfig(mode=3), "m2b1": SmoothConfig(binning=True), "m2b0h": SmoothConfig()}
+
+
+@pytest.mark.parametrize("tag", list(_LONG))
+def test_long_read_goldens_through_the_artifacts(tmp_path, tag):
+    """synth_long (400-600 bp): step 1's doubling build writes the artifacts,
+    and step 3 (lf_array, smooth, LF walk) reproduces the golden."""
+    src = str(tmp_path / "reads.fastq")
+    shutil.copyfile(golden_path("synth_long.in.fastq"), src)
+    cfg = PipelineConfig(smooth=_LONG[tag], mode=0, headers=tag.endswith("h"))
+    run_pipeline([src], cfg, out_base=str(tmp_path / "o"), device="cpu")
+    with open(golden_path(f"synth_long.{tag}.fq"), "rb") as f:
+        assert open(tmp_path / "o.fq", "rb").read() == f.read()

@@ -18,6 +18,7 @@ from bfqzip_tpu_torch.pipeline import _block_permutation, restore_fastq, run_pip
 
 from conftest import golden_path
 from test_torch_pipeline import assert_same_outputs
+from torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _both(inputs, cfg, d, **kw):

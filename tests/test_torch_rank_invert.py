@@ -28,6 +28,7 @@ from bfqzip_tpu_torch.ops.smooth import smooth
 from bfqzip_tpu_torch.ops.suffix import EbwtDevice, build_ebwt
 
 from conftest import golden_path
+from torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 DATASETS = ["example", "example_r1", "synth_var"]
 _CFGS = {

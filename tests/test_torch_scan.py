@@ -16,6 +16,7 @@ import jax.numpy as jnp
 
 from bfqzip_tpu.ops import scan as jscan
 from bfqzip_tpu_torch.ops import scan as tscan
+from torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 N = 70_000  # crosses the Pallas kernel's 64K-position blocks
 INT32_MIN = np.iinfo(np.int32).min
@@ -73,6 +74,35 @@ def test_plain_seg_scan_float64_add(channels):
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
 
 
+_TORCH_COMBINE = {"add": np.add, "max": np.maximum, "or": np.bitwise_or,
+                  "keepleft": lambda a, b: np.broadcast_to(a, b.shape)}
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("channels", [None, 3])
+@pytest.mark.parametrize("op", ["add", "max", "or", "keepleft"])
+def test_plain_seg_scan_tensor_init_is_a_carry(op, channels, dtype):
+    """A 0-d or [C] tensor init continues each channel from a carry:
+    scan(x, init=carry) == where(seen, local, combine(carry, local)), local
+    being the scan from the op's identity (keepleft's init is any value)."""
+    rng = np.random.default_rng(40 + len(op) + (channels or 1))
+    shape = (N,) if channels is None else (channels, N)
+    hi = 2**40 if dtype == np.int64 else 2**20
+    lo = 0 if op in ("add", "or") else -hi
+    x = rng.integers(lo, hi, shape, dtype=dtype)
+    f = rng.random(N) < 0.003
+    f[:50] = False
+    carry = rng.integers(lo, hi, () if channels is None else (channels,), dtype=dtype)
+    ident = {"add": 0, "max": int(np.iinfo(dtype).min), "or": 0, "keepleft": 0}[op]
+    local = tscan.seg_scan(torch.as_tensor(x), torch.as_tensor(f), op, ident).numpy()
+    seen = np.cumsum(f) > 0
+    c = carry if channels is None else carry[:, None]
+    want = np.where(seen, local, _TORCH_COMBINE[op](c, local))
+    got = tscan.seg_scan(torch.as_tensor(x), torch.as_tensor(f), op, torch.as_tensor(carry)).numpy()
+    assert got.dtype == dtype
+    assert np.array_equal(got, want)
+
+
 def test_flagless_cummax_with_minus_one():
     rng = np.random.default_rng(3)
     x = np.where(rng.random(N) < 0.9, -1, np.arange(N)).astype(np.int32)
@@ -124,3 +154,20 @@ def test_local_ops_shifts_iota_sum():
         assert np.array_equal(tops.shift_next_k(tx, k, 0).numpy(),
                               np.asarray(jops.shift_next_k(jx, k, 0)))
     assert int(tops.sum(tx)) == int(jops.sum(jx))
+
+
+def test_kernel_init_becomes_one_value_per_channel():
+    """The kernel reads init as a contiguous [C] array of x's dtype: a number
+    fills it, a 0-d or [C] carry is broadcast; other shapes are refused."""
+    from bfqzip_tpu_torch.ops.cuda_scan import _channel_init
+
+    got = _channel_init(-5, torch.int64, 3, "cpu")
+    assert got.dtype == torch.int64 and got.tolist() == [-5, -5, -5]
+    got = _channel_init(torch.tensor(7, dtype=torch.int32), torch.int64, 4, "cpu")
+    assert got.is_contiguous() and got.dtype == torch.int64 and got.tolist() == [7] * 4
+    carry = torch.arange(5, dtype=torch.int32)
+    assert torch.equal(_channel_init(carry, torch.int32, 5, "cpu"), carry)
+    with pytest.raises(ValueError, match="0-d or"):
+        _channel_init(carry, torch.int32, 3, "cpu")
+    with pytest.raises(ValueError, match="lies on"):
+        _channel_init(torch.zeros(3, device="meta"), torch.int32, 3, "cpu")

@@ -23,6 +23,7 @@ from bfqzip_tpu_torch.ops import smooth as tsmooth
 
 from conftest import golden_path
 from tests_util import tiny_batch
+from torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 FIELDS = ("bwt", "qs", "lcp", "sa", "text", "n", "pre")
 

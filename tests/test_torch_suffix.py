@@ -1,17 +1,19 @@
-"""The port's flat EBWT build against the JAX build and the numpy model."""
+"""The port's EBWT builds (flat and prefix doubling) against the JAX builds
+and the numpy model."""
 
 import numpy as np
 import pytest
-import torch
 
 from bfqzip_tpu import ref_golden
 from bfqzip_tpu.io.fastq import ReadBatch, read_fastq
-from bfqzip_tpu.ops.suffix import _build_ebwt_flat
+from bfqzip_tpu.ops.suffix import _build_ebwt_doubling, _build_ebwt_flat
 from bfqzip_tpu_torch.convert import batch_to_tensors, ebwt_to_numpy
+from bfqzip_tpu_torch.ops import suffix as tsuffix
 from bfqzip_tpu_torch.ops.suffix import build_ebwt
 
 from conftest import golden_path
 from tests_util import tiny_batch
+from torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 FIELDS = ("bwt", "qs", "lcp", "sa", "text", "n", "pre")
 
@@ -73,14 +75,74 @@ def test_build_random_tiny_with_ns_and_dummy_rows(seed):
     assert np.array_equal(got["pre"][:n][used], plain["pre"][:n][used])
 
 
-def test_long_reads_raise():
-    seqs = torch.ones((2, 324), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="doubling"):
-        build_ebwt(seqs, seqs, torch.tensor([324, 300], dtype=torch.int32))
-    # the widest flat window (width + 1 == 324, as in the JAX dispatch) still builds
-    seqs = torch.ones((1, 323), dtype=torch.uint8)
-    ebwt = build_ebwt(seqs, seqs + 40, torch.tensor([323], dtype=torch.int32))
-    assert int(ebwt.n) == 324
+def _assert_doubling_same_as_jax(batch, direct=False):
+    """Every array of the port's doubling build equals the JAX one's; pre
+    stays None, as in JAX."""
+    args = (np.asarray(batch.seqs), np.asarray(batch.quals), np.asarray(batch.lengths))
+    jx = _build_ebwt_doubling(*args)
+    build = tsuffix._build_ebwt_doubling if direct else build_ebwt
+    ebwt = build(*batch_to_tensors(batch, "cpu"))
+    assert ebwt.pre is None
+    got = {f: getattr(ebwt, f).numpy() for f in FIELDS if f != "pre"}
+    for f, v in got.items():
+        want = np.asarray(getattr(jx, f))
+        assert v.dtype == want.dtype, f
+        assert np.array_equal(v, want), f
+    return got
+
+
+@pytest.mark.parametrize("dataset, direct", [("synth_long", False), ("example", True),
+                                             ("synth_var", True)])
+def test_doubling_build_matches_jax_and_numpy_model(dataset, direct):
+    """synth_long (400-600 bp) goes through build_ebwt's dispatch; the short
+    goldens call the doubling path directly."""
+    batch = read_fastq(golden_path(f"{dataset}.in.fastq"))
+    got = _assert_doubling_same_as_jax(batch, direct)
+    ref = ref_golden.build_ebwt(batch)
+    n = int(got["n"])
+    assert n == ref.bwt.size
+    for f in ("bwt", "qs", "lcp"):
+        assert np.array_equal(got[f][:n], getattr(ref, f)), f
+
+
+def test_dispatch_at_the_flat_window_limit():
+    """width + 1 == 324 is the widest flat window, as in the JAX dispatch;
+    one more column takes the doubling build."""
+    rng = np.random.default_rng(9)
+    full = tiny_batch(rng, n_reads=12, min_len=324, max_len=324, n_frac=0.01)
+    lengths = rng.integers(250, 325, 12).astype(np.int32)
+    lengths[0] = 324
+    keep = np.arange(324)[None, :] < lengths[:, None]
+    batch = ReadBatch(seqs=np.where(keep, full.seqs, 0).astype(np.uint8),
+                      quals=np.where(keep, full.quals, 0).astype(np.uint8), lengths=lengths)
+    at_limit = ReadBatch(seqs=batch.seqs[:, :323], quals=batch.quals[:, :323],
+                         lengths=np.minimum(batch.lengths, 323))
+    assert build_ebwt(*batch_to_tensors(at_limit, "cpu")).pre is not None
+    _assert_same_as_jax(at_limit)
+    assert batch.seqs.shape[1] == 324
+    _assert_doubling_same_as_jax(batch)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_doubling_repetitive_long_reads(seed):
+    """Long reads cut from a short genome, with exact duplicates and ties
+    that last into the late doubling rounds: SA order and the lifted LCP
+    against JAX and the numpy model."""
+    rng = np.random.default_rng(700 + seed)
+    genome = rng.integers(1, 5, 420).astype(np.uint8)
+    n_reads, width = 30, 340
+    starts = rng.integers(0, 40, n_reads)
+    lengths = rng.integers(300, width + 1, n_reads).astype(np.int32)
+    lengths[:5], starts[:5] = width, 7  # exact duplicates
+    cols = np.arange(width)
+    seqs = np.where(cols[None, :] < lengths[:, None], genome[starts[:, None] + cols[None, :]], 0)
+    quals = np.where(seqs > 0, rng.integers(35, 75, seqs.shape), 0)
+    batch = ReadBatch(seqs=seqs.astype(np.uint8), quals=quals.astype(np.uint8), lengths=lengths)
+    got = _assert_doubling_same_as_jax(batch)
+    ref = ref_golden.build_ebwt(batch)
+    n = int(got["n"])
+    assert np.array_equal(got["lcp"][:n], ref.lcp)
+    assert got["lcp"].max() >= 300  # pairs equal across every doubling span
 
 
 @pytest.mark.parametrize("seed", [0, 1])
