@@ -5,9 +5,9 @@ build, positional cluster smoothing, inversion (SA scatter in memory, LF walk
 from the cached artifacts), stream split and host entropy coding, with the
 segmented scan as a hand-written CUDA kernel (csrc/seg_scan.cu).  The JAX
 package bfqzip_tpu stays the reference; this package imports torch and never
-jax, and reuses only bfqzip_tpu's jax-free host modules (alphabet, config,
-io.fastq, models.context, utils.native / reorder / debug / logging, and the
-CLI parser).
+jax, and nothing of bfqzip_tpu: it carries its own copies of the host
+modules it needs (alphabet, config, io.fastq / io.spill, models.context,
+utils.native / reorder / debug / logging, and the CLI parser).
 
   bfqzip_tpu_torch.cli       python -m bfqzip_tpu_torch (same flags as bfqzip_tpu)
   bfqzip_tpu_torch.pipeline  steps 1-5 with the artifact cache, restore, decompress
@@ -15,9 +15,11 @@ CLI parser).
   bfqzip_tpu_torch.ops       suffix build, scans, rank/LF, smoothing, inversion, rANS
   bfqzip_tpu_torch.models    BQZH header codec, BQZE decoder
   bfqzip_tpu_torch.convert   numpy <-> tensor state (EBWT, read batches)
-  bfqzip_tpu_torch.utils     nvcc build of csrc/*.cu (ctypes), StepLogger
+  bfqzip_tpu_torch.io        FASTQ parse / format, spill-backed arrays
+  bfqzip_tpu_torch.utils     nvcc build of csrc/*.cu (ctypes), native host codecs,
+                             StepLogger, reorder, debug dumps
 
 No device is chosen at import: callers pass one.
 """
 
-from bfqzip_tpu.config import SmoothConfig  # noqa: F401
+from bfqzip_tpu_torch.config import SmoothConfig  # noqa: F401

@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bfqzip_tpu.io.fastq import ReadBatch
+from bfqzip_tpu_torch.io.fastq import ReadBatch
 from bfqzip_tpu_torch.ops.suffix import EbwtDevice
 
 _DTYPES = {

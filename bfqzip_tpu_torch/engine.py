@@ -12,9 +12,9 @@ from typing import Tuple
 
 import torch
 
-from bfqzip_tpu import alphabet
-from bfqzip_tpu.config import SmoothConfig
-from bfqzip_tpu.io.fastq import ReadBatch
+from bfqzip_tpu_torch import alphabet
+from bfqzip_tpu_torch.config import SmoothConfig
+from bfqzip_tpu_torch.io.fastq import ReadBatch
 from bfqzip_tpu_torch.convert import batch_to_tensors
 from bfqzip_tpu_torch.ops.invert import InvertOut, invert, invert_via_sa
 from bfqzip_tpu_torch.ops.smooth import lf_and_pre, smooth

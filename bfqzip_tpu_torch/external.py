@@ -9,7 +9,7 @@ every read is shorter than 255 bp.
      (ops/suffix.build_ebwt, flat or doubling by read width); only the
      chunk's suffix positions and 255-capped LCPs come back to the host;
   2. the native k-way merge (native/extmerge.cpp through
-     bfqzip_tpu.utils.native.ext_merge) interleaves the chunk orders into the
+     utils/native.ext_merge) interleaves the chunk orders into the
      global BWT, QS, 1-byte LCP, smoothing predecessor and SA;
   3. streaming cluster smoothing: ops/smooth.cluster_words runs per device
      segment through SeqChunkOps, whose every scan takes the previous
@@ -45,11 +45,11 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from bfqzip_tpu import alphabet
-from bfqzip_tpu.config import SmoothConfig
-from bfqzip_tpu.io.fastq import ReadBatch, format_fastq, write_fastq
-from bfqzip_tpu.io.spill import Spill
-from bfqzip_tpu.utils import native
+from bfqzip_tpu_torch import alphabet
+from bfqzip_tpu_torch.config import SmoothConfig
+from bfqzip_tpu_torch.io.fastq import ReadBatch, format_fastq, write_fastq
+from bfqzip_tpu_torch.io.spill import Spill
+from bfqzip_tpu_torch.utils import native
 from bfqzip_tpu_torch.engine import resolve_device
 from bfqzip_tpu_torch.ops.invert import illumina_bin
 from bfqzip_tpu_torch.ops.scan import LOCAL_OPS, LocalScanOps

@@ -18,7 +18,7 @@ import struct
 import numpy as np
 import torch
 
-from bfqzip_tpu import alphabet
+from bfqzip_tpu_torch import alphabet
 from bfqzip_tpu_torch.engine import resolve_device
 from bfqzip_tpu_torch.ops import rans
 from bfqzip_tpu_torch.ops.invert import invert

@@ -2,13 +2,15 @@
 
 The kernel replaces bfqzip_tpu/ops/pallas_scan.py::_seg_scan_kernel.  This
 wrapper takes CUDA tensors only: it checks device, dtype, shape and
-contiguity, allocates the output and the per-tile scratch with torch.empty,
-launches on the current stream and raises if the launch was refused.  The
-plain PyTorch version of the same function is ops/scan.py::seg_scan; the
-dispatch between the two lives in ops/scan.py::LocalScanOps.
+contiguity, allocates the output with torch.empty and the launch's scratch
+(tile status words and tile counter, or float64's tile aggregates) zeroed
+with torch.zeros, launches on the current stream and raises if the launch
+was refused.  The plain PyTorch version of the same function is
+ops/scan.py::seg_scan; the dispatch between the two lives in
+ops/scan.py::LocalScanOps.
 
-`launches` counts the calls that launched the kernel (its three passes count
-as one), so a run can show that it went through the kernel;
+`launches` counts the calls that launched the kernel (float64's three
+passes count as one), so a run can show that it went through the kernel;
 `launches_by_dtype` splits the same count by the scanned dtype.
 """
 
@@ -21,7 +23,7 @@ import torch
 from bfqzip_tpu_torch.utils import cuda_build
 
 OPS = {"add": 0, "max": 1, "or": 2, "keepleft": 3}
-_INT_ENTRY = {torch.int32: "bfq_seg_scan_i32", torch.int64: "bfq_seg_scan_i64"}
+DTYPES = {torch.int32: 0, torch.int64: 1, torch.float64: 2}  # the library's dtype codes
 
 launches = 0
 launches_by_dtype: dict[str, int] = {}
@@ -33,16 +35,13 @@ def _library():
     global _lib
     if _lib is None:
         lib = cuda_build.load("seg_scan")
-        ptr = ctypes.c_void_p
-        common = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong, ctypes.c_int]
-        for name in _INT_ENTRY.values():
-            fn = getattr(lib, name)
-            fn.argtypes = common + [ctypes.c_int, ctypes.c_int, ptr]
-            fn.restype = ctypes.c_int
-        lib.bfq_seg_scan_f64.argtypes = common + [ctypes.c_int, ptr]
-        lib.bfq_seg_scan_f64.restype = ctypes.c_int
-        lib.bfq_seg_scan_tile.argtypes = []
-        lib.bfq_seg_scan_tile.restype = ctypes.c_int
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.bfq_seg_scan.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, ptr]
+        lib.bfq_seg_scan.restype = i32
+        lib.bfq_seg_scan_scratch_bytes.argtypes = [i32, i64, i32]
+        lib.bfq_seg_scan_scratch_bytes.restype = i64
+        lib.bfq_seg_scan_tile.argtypes = [i32]
+        lib.bfq_seg_scan_tile.restype = i32
         _lib = lib
     return _lib
 
@@ -60,6 +59,11 @@ def _channel_init(init, dtype: torch.dtype, C: int, device) -> torch.Tensor:
     return init.to(dtype).expand(C).contiguous()
 
 
+def tile_size(dtype: torch.dtype) -> int:
+    """Positions per tile of the kernel for `dtype` (builds the library)."""
+    return _library().bfq_seg_scan_tile(DTYPES[dtype])
+
+
 def seg_scan(x: torch.Tensor, flag: torch.Tensor, op: str, init, reverse: bool = False) -> torch.Tensor:
     """Inclusive segmented scan of x ([n] or channel-first [C, n]) on the card.
 
@@ -74,11 +78,10 @@ def seg_scan(x: torch.Tensor, flag: torch.Tensor, op: str, init, reverse: bool =
         raise ValueError(f"seg_scan kernel needs CUDA tensors on one device, got {x.device}, {flag.device}")
     if op not in OPS:
         raise ValueError(f"unknown scan op {op!r}")
-    if x.dtype == torch.float64:
-        if op != "add":
-            raise ValueError(f"float64 scan supports add only, got {op!r}")
-    elif x.dtype not in _INT_ENTRY:
+    if x.dtype not in DTYPES:
         raise TypeError(f"seg_scan kernel takes int32, int64 or float64, got {x.dtype}")
+    if x.dtype == torch.float64 and op != "add":
+        raise ValueError(f"float64 scan supports add only, got {op!r}")
     if x.dim() not in (1, 2):
         raise ValueError(f"x must be [n] or [C, n], got shape {tuple(x.shape)}")
     n = x.shape[-1]
@@ -97,18 +100,13 @@ def seg_scan(x: torch.Tensor, flag: torch.Tensor, op: str, init, reverse: bool =
         return out
 
     lib = _library()
-    ntiles = -(-n // lib.bfq_seg_scan_tile())
-    agg_v = torch.empty(C * ntiles, dtype=x.dtype, device=x.device)
-    agg_f = torch.empty(C * ntiles, dtype=torch.uint8, device=x.device)
-    carry = torch.empty(C * ntiles, dtype=x.dtype, device=x.device)
+    code = DTYPES[x.dtype]
+    scratch = torch.zeros(lib.bfq_seg_scan_scratch_bytes(code, n, C), dtype=torch.uint8,
+                          device=x.device)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        args = (x.data_ptr(), flag.data_ptr(), out.data_ptr(), agg_v.data_ptr(),
-                agg_f.data_ptr(), carry.data_ptr(), init_c.data_ptr(), n, C)
-        if x.dtype == torch.float64:
-            err = lib.bfq_seg_scan_f64(*args, int(reverse), stream)
-        else:
-            err = getattr(lib, _INT_ENTRY[x.dtype])(*args, OPS[op], int(reverse), stream)
+        err = lib.bfq_seg_scan(code, x.data_ptr(), flag.data_ptr(), out.data_ptr(),
+                               scratch.data_ptr(), init_c.data_ptr(), n, C, OPS[op],
+                               int(reverse), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"seg_scan kernel launch failed: cudaError {err}")
     launches += 1

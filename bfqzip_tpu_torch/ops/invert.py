@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from bfqzip_tpu import alphabet
+from bfqzip_tpu_torch import alphabet
 
 _BINS = ((2, 6), (10, 15), (20, 22), (25, 27), (30, 33), (35, 37), (40, 40))
 

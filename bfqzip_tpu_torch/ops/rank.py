@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from bfqzip_tpu import alphabet
+from bfqzip_tpu_torch import alphabet
 from bfqzip_tpu_torch.ops.scan import LOCAL_OPS
 
 

@@ -3,8 +3,8 @@
 Port of bfqzip_tpu/ops/rans.py; the containers are that module's byte for
 byte (see its docstring for the design: 32-bit states, 16-bit
 renormalisation, 12-bit frequencies, striped lanes, static context tables
-from bfqzip_tpu.models.context).  The coder runs on the host: the native
-C++ codec (bfqzip_tpu.utils.native, built by `make -C native` at first use)
+from models/context.py).  The coder runs on the host: the native
+C++ codec (utils/native.py, built by `make -C native` at first use)
 when it is built, else the numpy loops below, which step through the chunk
 positions vectorised across lanes with np.uint32 arithmetic (wrap-around
 included) in place of the JAX package's lax.scan.
@@ -16,8 +16,8 @@ import struct
 
 import numpy as np
 
-from bfqzip_tpu.models.context import ContextSpec, Order0Spec, Order1Spec, Order2Spec, spec_by_id
-from bfqzip_tpu.utils import native
+from bfqzip_tpu_torch.models.context import ContextSpec, Order0Spec, Order1Spec, Order2Spec, spec_by_id
+from bfqzip_tpu_torch.utils import native
 
 PRECISION = 12
 M = 1 << PRECISION

@@ -22,8 +22,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from bfqzip_tpu import alphabet
-from bfqzip_tpu.config import SmoothConfig
+from bfqzip_tpu_torch import alphabet
+from bfqzip_tpu_torch.config import SmoothConfig
 from bfqzip_tpu_torch.ops.rank import lf_array
 from bfqzip_tpu_torch.ops.scan import LOCAL_OPS
 from bfqzip_tpu_torch.ops.suffix import EbwtDevice

@@ -35,7 +35,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from bfqzip_tpu import alphabet
+from bfqzip_tpu_torch import alphabet
 
 PACK6 = 24  # base-6 digits per int64 key word
 FLAT_MAX_WINDOW = 324  # the JAX flat path's limit (PACK6 * MAX_FLAT_WORDS): width + 1 <= 324

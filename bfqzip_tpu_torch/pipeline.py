@@ -30,10 +30,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from bfqzip_tpu import alphabet
-from bfqzip_tpu.config import PipelineConfig
-from bfqzip_tpu.io.fastq import ReadBatch, format_fastq, read_fastq
-from bfqzip_tpu.utils import native
+from bfqzip_tpu_torch import alphabet
+from bfqzip_tpu_torch.config import PipelineConfig
+from bfqzip_tpu_torch.io.fastq import ReadBatch, format_fastq, read_fastq
+from bfqzip_tpu_torch.utils import native
 from bfqzip_tpu_torch.convert import batch_to_tensors
 from bfqzip_tpu_torch.engine import resolve_device, smooth_arrays_step, smooth_fastq
 from bfqzip_tpu_torch.ops import rans
@@ -142,7 +142,7 @@ def step3_smooth(base: str, cfg: PipelineConfig, log: StepLogger, device, debug_
 
     if debug_dump:
         # reference -D/-V inspection outputs (bfq_int.cpp:829-862,1022-1053)
-        from bfqzip_tpu.utils import debug as dbg
+        from bfqzip_tpu_torch.utils import debug as dbg
 
         bwt, qs, lcp = (a[:n].cpu().numpy() for a in (bwt, qs, lcp))
         bwt_sub_h = bwt_sub[:n].cpu().numpy()
@@ -365,7 +365,7 @@ def run_pipeline(
             # out-of-core runs parse in record-aligned slabs straight into
             # spill-backed arrays, so the input never needs twice its size
             # of host RAM
-            from bfqzip_tpu.io.spill import Spill, read_fastq_spill
+            from bfqzip_tpu_torch.io.spill import Spill, read_fastq_spill
 
             spill = Spill()
             batches = [read_fastq_spill(inputs[0], spill, with_headers=True)]
@@ -381,7 +381,7 @@ def run_pipeline(
     # ---- optional reorder: in paired mode ONE permutation, computed on
     # file 1, is applied to both mate files, so mates stay aligned ----
     if reorder:
-        from bfqzip_tpu.utils.reorder import reorder_batch
+        from bfqzip_tpu_torch.utils.reorder import reorder_batch
 
         with log.step(f"reorder mode {reorder}"):
             if len(batches) > 1:

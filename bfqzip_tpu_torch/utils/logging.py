@@ -1,36 +1,56 @@
-"""Per-run logging of the port: bfqzip_tpu's StepLogger with device memory
-read from torch instead of jax.
+"""Per-run logging of the port: step timers, subprocess capture, per-phase memory.
 
-The shared logger reads device memory through jax in every step.  This one
-records, for a CUDA device, `bytes_in_use` (torch.cuda.memory_allocated),
-`peak_bytes_in_use` (torch.cuda.max_memory_allocated, reset at the start of
-each step, so it is that step's peak) and `bytes_limit` (the card's total
-memory); for the CPU it records none.  Log lines and `phases` records keep
-the shared logger's format.
+The same contract and log format as bfqzip_tpu/utils/logging.py (the
+reference's BASENAME.log: command lines, wall-clock per step, peak heap per
+phase), with device memory read from torch.  Each step records its wall
+seconds, the host RSS high-water delta across it, and, for a CUDA device,
+`bytes_in_use` (torch.cuda.memory_allocated), `peak_bytes_in_use`
+(torch.cuda.max_memory_allocated, reset at the start of each step, so it is
+that step's peak) and `bytes_limit` (the card's total memory); for the CPU
+it records no device memory.
 """
 
 from __future__ import annotations
 
 import contextlib
+import resource
+import subprocess
+import sys
 import time
+from typing import List
 
 import torch
 
-from bfqzip_tpu.utils import logging as _shared
+
+def _rss_kb() -> int:
+    # ru_maxrss is KB on Linux; a high-water mark, so per-step deltas show
+    # which phase pushed the peak (0 for phases under an earlier peak)
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
 
 
-class StepLogger(_shared.StepLogger):
+class StepLogger:
     def __init__(self, path: str, device=None):
-        super().__init__(path)
+        self.path = path
+        self.f = open(path, "a")
+        self.phases: List[dict] = []
         self.device = torch.device(device) if device is not None else None
 
     def _cuda(self) -> bool:
         return self.device is not None and self.device.type == "cuda"
 
+    def info(self, msg: str) -> None:
+        print(msg)
+        print(msg, file=self.f)
+        self.f.flush()
+
+    def command_line(self) -> None:
+        print("command line: " + " ".join(sys.argv), file=self.f)
+        self.f.flush()
+
     @contextlib.contextmanager
     def step(self, name: str):
         t0 = time.time()
-        rss0 = _shared._rss_kb()
+        rss0 = _rss_kb()
         if self._cuda():
             torch.cuda.reset_peak_memory_stats(self.device)
         self.info(f"--- {name} ---")
@@ -42,8 +62,8 @@ class StepLogger(_shared.StepLogger):
             rec = {
                 "phase": name,
                 "seconds": time.time() - t0,
-                "host_rss_delta_mb": round((_shared._rss_kb() - rss0) / 1024.0, 2),
-                "host_rss_peak_mb": round(_shared._rss_kb() / 1024.0, 2),
+                "host_rss_delta_mb": round((_rss_kb() - rss0) / 1024.0, 2),
+                "host_rss_peak_mb": round(_rss_kb() / 1024.0, 2),
             }
             mem = f"  host_rss_delta={rec['host_rss_delta_mb']:.1f}MB"
             if self._cuda():
@@ -56,3 +76,13 @@ class StepLogger(_shared.StepLogger):
                 )
             self.phases.append(rec)
             self.info(f"    elapsed: {rec['seconds']:.4f}s{mem}")
+
+    def run(self, cmd) -> None:
+        """Run a subprocess with output captured into the log (the reference's
+        execute_command, BFQzip.py:328-336)."""
+        print("$ " + " ".join(cmd), file=self.f)
+        self.f.flush()
+        subprocess.check_call(cmd, stdout=self.f, stderr=self.f)
+
+    def close(self) -> None:
+        self.f.close()

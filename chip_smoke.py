@@ -8,17 +8,24 @@ Phases, each printed on its own line; the first failure exits non-zero:
   2. build        nvcc builds csrc/seg_scan.cu from the checkout
   3. kernel       the CUDA seg_scan against its plain PyTorch version on the
                   card: every op/dtype (int32 and int64 add/max/or/keepleft,
-                  int64 values past 2^31, float64 add), C in {1, 5}, both
-                  directions, five sizes and five flag patterns, then a
-                  random per-channel tensor init (the out-of-core carry) for
-                  every op/dtype pair; integers bit-exact, float64 within
-                  1e-12 relative error; kernel and plain ms at 20.4M
+                  int64 values past 2^31, float64 add), C in {1, 5} (odd n
+                  gives misaligned rows), both directions, five sizes and the
+                  tile edges k * tile + {-1, 0, 1} for k in {1, 33}, five flag
+                  patterns, then a random per-channel tensor init (the
+                  out-of-core carry) for every op/dtype pair; every case run
+                  twice with bit-equal results; integers bit-exact, float64
+                  within 1e-12 relative error; a look-back stress (one flag,
+                  at position 0) at the main path's n_pad; kernel and plain
+                  ms at 20.4M beside the bound
   4. goldens      all 24 reference-binary goldens through
                   smooth_fastq(device="cuda"), byte-equal (synth_long's
                   400-600 bp reads through the doubling build)
   5. real size    2M x 101 bp realistic reads: warm-up + 3 timed
                   smooth_fastq runs, stage times, peak memory, kernel launch
-                  counts, the identity round trip and kernel-vs-plain smooth
+                  counts, the identity round trip and kernel-vs-plain smooth;
+                  then each seg_scan launch of one smooth on its own inputs:
+                  bit-exact against the plain version, kernel / plain /
+                  library (torch.cumsum or torch.cummax) ms beside the bound
   6. cli          the native codec library (make -B -C native, started at the
                   beginning) must load; the phase-5 reads as a FASTQ through
                   bfqzip_tpu_torch.cli -0 --rebuild (steps 1-3 through the
@@ -46,8 +53,10 @@ Phases, each printed on its own line; the first failure exits non-zero:
                   byte-equal to smooth_fastq.  In (a), (c) and (d) one
                   middle segment is rerun with the plain scans on its
                   recorded window and carries: every output equal
-Then a JSON line describing each kernel, and last the result line
-{"ok": true, "device": {...}}.  Imports no jax.
+Then a JSON line describing each kernel (its times are the sums over phase
+5's launches), the card's name and power limit, and last the result line
+{"ok": true, "device": {...}}.  Imports nothing of jax or of the JAX package
+bfqzip_tpu.
 """
 
 from __future__ import annotations
@@ -62,6 +71,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden")
 N_BENCH = 20_400_000  # 200K reads x 102 positions
+N_MAIN = 204_000_000  # the main path's n_pad: 2M reads x 102 positions
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA's data sheet
 REAL_READS, REAL_LEN = 2_000_000, 101
 # the host codecs encode ~2.8 MB/s over the three streams on the host of an
 # NVIDIA H100 80GB HBM3 at 700 W (PERF.md), so their depth is cut
@@ -189,6 +200,35 @@ def plain_ops():
     return PlainScanOps()
 
 
+def _bits(t):
+    """t as integers, so that equality is bit-equality for float64 too."""
+    import torch
+
+    return t.view(torch.int64) if t.dtype == torch.float64 else t
+
+
+def _kernel_twice(x, f, op, init, reverse, case: str):
+    """The kernel's result, after a second launch on the same inputs gave
+    the same bits (a fixed float64 order; no race in the look-back)."""
+    import torch
+
+    from bfqzip_tpu_torch.ops import cuda_scan
+
+    got = cuda_scan.seg_scan(x, f, op, init, reverse)
+    again = cuda_scan.seg_scan(x, f, op, init, reverse)
+    torch.cuda.synchronize()
+    if not torch.equal(_bits(got), _bits(again)):
+        fail(f"kernel {case}: two launches on the same inputs differ")
+    return got
+
+
+def bound_ms(x) -> float:
+    """The least time of one scan of x on the card: x and the flag row read
+    once and the output written once, over 3.35 TB/s."""
+    C = 1 if x.dim() == 1 else x.shape[0]
+    return (2 * C * x.element_size() + 1) * x.shape[-1] / HBM_BYTES_PER_S * 1e3
+
+
 def kernel_vs_plain() -> float:
     import torch
 
@@ -202,26 +242,31 @@ def kernel_vs_plain() -> float:
              ("keepleft", torch.int32, 0), ("add", torch.int64, 0), ("max", torch.int64, int64_min),
              ("or", torch.int64, 0), ("keepleft", torch.int64, 0), ("add", torch.float64, 0.0)]
     plain = plain_ops()
-    max_abs, cases, carry_cases, timings = 0.0, 0, 0, []
+    max_abs, cases, misaligned, carry_cases, timings = 0.0, 0, 0, 0, []
     for op, dtype, init in pairs:
+        tile = cuda_scan.tile_size(dtype)
+        # tile edges, the last past one look-back window of 32 tiles
+        edges = [k * tile + d for k in (1, 33) for d in (-1, 0, 1)]
         for C in (1, 5):
             for reverse in (False, True):
-                for n in (1, 127, 4097, 1_000_003, N_BENCH):
+                for n in (1, 127, 4097, 1_000_003, N_BENCH, *edges):
                     for pattern in ("none", "all", "dense", "first", "last"):
                         shape = (n,) if C == 1 else (C, n)
                         x = _values(op, dtype, shape, gen)
                         f = _flags(pattern, n, gen)
-                        got = cuda_scan.seg_scan(x, f, op, init, reverse)
-                        want = plain._scan(x, f, op, init, reverse)
                         case = f"{op}/{dtype}/C={C}/rev={reverse}/n={n}/{pattern}"
+                        got = _kernel_twice(x, f, op, init, reverse, case)
+                        want = plain._scan(x, f, op, init, reverse)
                         max_abs = max(max_abs, _check(got, want, case))
                         cases += 1
+                        misaligned += C > 1 and n * x.element_size() % 16 != 0
                         if n == N_BENCH and pattern == "dense":
                             timings.append({
                                 "op": op, "dtype": str(dtype).split(".")[-1], "C": C,
                                 "reverse": reverse, "n": n,
                                 "ms": cuda_ms(lambda: cuda_scan.seg_scan(x, f, op, init, reverse), 20),
                                 "plain_ms": cuda_ms(lambda: seg_scan(x, f, op, init), 3),
+                                "bound_ms": bound_ms(x),
                             })
                         del x, f, got, want
                 # a random per-channel carry as init, on the card, as the
@@ -234,12 +279,26 @@ def kernel_vs_plain() -> float:
                         carry = _values(op, dtype, (C,), gen)
                         if C == 1 and n > 1:
                             carry = carry[0]  # a 0-d carry, as SeqChunkOps records one
-                        got = cuda_scan.seg_scan(x, f, op, carry, reverse)
-                        want = plain._scan(x, f, op, carry, reverse)
                         case = f"carry {op}/{dtype}/C={C}/rev={reverse}/n={n}/{pattern}"
+                        got = _kernel_twice(x, f, op, carry, reverse, case)
+                        want = plain._scan(x, f, op, carry, reverse)
                         max_abs = max(max_abs, _check(got, want, case))
                         carry_cases += 1
-    phase("kernel", cases=cases, carry_cases=carry_cases, max_abs_err=max_abs, timings=timings)
+    # look-back stress at the main path's size: one flag, at position 0, so
+    # every tile's prefix runs back to the first tile
+    stress = []
+    for op, C, init in (("add", 5, 0), ("max", 1, INT32_MIN)):
+        for reverse in (False, True):
+            shape = (N_MAIN,) if C == 1 else (C, N_MAIN)
+            x = _values(op, torch.int32, shape, gen)
+            f = _flags("first", N_MAIN, gen)
+            case = f"stress {op}/int32/C={C}/rev={reverse}/n={N_MAIN}/first"
+            got = _kernel_twice(x, f, op, init, reverse, case)
+            _check(got, plain._scan(x, f, op, init, reverse), case)
+            stress.append(case)
+            del x, f, got
+    phase("kernel", cases=cases, misaligned_cases=misaligned, carry_cases=carry_cases,
+          stress=stress, runs_bit_equal=True, max_abs_err=max_abs, timings=timings)
     return max_abs
 
 
@@ -292,7 +351,6 @@ def real_size(batch, t_data: float) -> dict:
     from bfqzip_tpu_torch.engine import smooth_fastq
     from bfqzip_tpu_torch.ops import cuda_scan
     from bfqzip_tpu_torch.ops.invert import invert_via_sa
-    from bfqzip_tpu_torch.ops.scan import seg_scan
     from bfqzip_tpu_torch.ops.smooth import smooth
     from bfqzip_tpu_torch.ops.suffix import build_ebwt
 
@@ -353,19 +411,11 @@ def real_size(batch, t_data: float) -> dict:
         fail("smooth with the kernel differs from smooth with the plain scans")
     if {k: int(v) for k, v in plain.stats.items()} != {k: int(v) for k, v in sm.stats.items()}:
         fail("smooth stats differ between kernel and plain scans")
-    del plain
+    del plain, sm, ident
 
-    # the kernel at the main path's widest call: [5, n_pad] int32 add
+    launch_times = main_path_launches(ebwt, cfg)
     n_pad = ebwt.bwt.shape[0]
-    X = (ebwt.bwt[None, :] == torch.arange(1, 6, device="cuda", dtype=torch.uint8)[:, None]).to(torch.int32)
-    open_mark = torch.rand(n_pad, device="cuda") < 0.05
-    got = cuda_scan.seg_scan(X, open_mark, "add", 0)
-    want = seg_scan(X, open_mark, "add", 0)
-    if not torch.equal(got, want):
-        fail("kernel vs plain at the main path's [5, n_pad] shape: not bit-exact")
-    ms = cuda_ms(lambda: cuda_scan.seg_scan(X, open_mark, "add", 0), 10)
-    plain_ms = cuda_ms(lambda: seg_scan(X, open_mark, "add", 0), 2)
-    del got, want, X
+    del ebwt
 
     res = {
         "reads": REAL_READS, "read_len": REAL_LEN, "n_pad": n_pad, "data_s": t_data,
@@ -373,10 +423,59 @@ def real_size(batch, t_data: float) -> dict:
         "bases_per_s_median": total_bases / sorted(run_s)[1], **stage,
         "peak_bytes": peak, "launches_per_run": per_run, "launches": launches,
         "stats": stats, "identity": True, "kernel_vs_plain_smooth": True,
-        "scan_shape": [5, n_pad], "scan_ms": ms, "scan_plain_ms": plain_ms,
+        "scan_launches": launch_times,
     }
     phase("real_size", **res)
     return res
+
+
+def main_path_launches(ebwt, cfg) -> list:
+    """Each seg_scan launch of one smooth() on phase 5's EBWT, on its own
+    inputs: the kernel against the plain version (bit-exact), then the
+    kernel's, the plain version's and one unsegmented PyTorch call's ms
+    beside the bound.  torch.cumsum (torch.cummax for max) along the last
+    axis is the library yardstick: no one PyTorch call computes a segmented
+    scan, so the closest one computes an unsegmented one; the port never
+    calls it.  `copy_ms` times a device copy of x (x read once, written
+    once): the memory rate the card reaches in practice on these bytes."""
+    import torch
+
+    from bfqzip_tpu_torch.ops import cuda_scan
+    from bfqzip_tpu_torch.ops.smooth import smooth
+
+    calls = []
+    kernel = cuda_scan.seg_scan
+
+    def recording(x, flag, op, init, reverse=False):
+        calls.append((x, flag, op, init, reverse))
+        return kernel(x, flag, op, init, reverse)
+
+    cuda_scan.seg_scan = recording
+    try:
+        smooth(ebwt, cfg, pre=ebwt.pre)
+    finally:
+        cuda_scan.seg_scan = kernel
+    plain = plain_ops()
+    out = []
+    for x, f, op, init, reverse in calls:
+        case = f"main-path {op}/{x.dtype}/{tuple(x.shape)}/rev={reverse}"
+        _check(kernel(x, f, op, init, reverse), plain._scan(x, f, op, init, reverse), case)
+        if op == "max":
+            library = lambda: torch.cummax(x, dim=-1)  # noqa: E731
+        else:
+            library = lambda: torch.cumsum(x, dim=-1, dtype=x.dtype)  # noqa: E731
+        ms = cuda_ms(lambda: kernel(x, f, op, init, reverse), 20)
+        copy = torch.empty_like(x)
+        out.append({"op": op, "dtype": str(x.dtype).split(".")[-1], "shape": list(x.shape),
+                    "reverse": reverse, "flags": int(f.sum()), "ms": ms,
+                    "plain_ms": cuda_ms(lambda: plain._scan(x, f, op, init, reverse), 2),
+                    "library_ms": cuda_ms(library, 10),
+                    "library_call": "torch.cummax" if op == "max" else "torch.cumsum",
+                    "bound_ms": bound_ms(x), "bound_share": bound_ms(x) / ms,
+                    "copy_ms": cuda_ms(lambda: copy.copy_(x), 20)})
+        del copy
+    del calls
+    return out
 
 
 def _cli(argv, reports=None) -> float:
@@ -720,7 +819,7 @@ def external_path(real) -> dict:
     import numpy as np
     import torch
 
-    from bfqzip_tpu.io.spill import Spill
+    from bfqzip_tpu_torch.io.spill import Spill
     from bfqzip_tpu_torch import SmoothConfig
     from bfqzip_tpu_torch.external import smooth_fastq_external
     from bfqzip_tpu_torch.ops import cuda_scan
@@ -924,13 +1023,23 @@ def main() -> int:
     del batch
     long = long_reads()
     ext = external_path(cli)
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    for package in ("jax", "bfqzip_tpu"):
+        if package in sys.modules:
+            fail(f"{package} was imported")
+    scans = real["scan_launches"]
+    ms = sum(r["ms"] for r in scans)
     print(json.dumps({"kernels": [{
         "name": "seg_scan", "route": "cuda", "source": "bfqzip_tpu_torch/csrc/seg_scan.cu",
         "replaces": "bfqzip_tpu/ops/pallas_scan.py:89",
         "launches": real["launches"] + cli["launches"] + long["launches"] + ext["launches"],
-        "max_abs_err": max_abs, "ms": real["scan_ms"], "plain_ms": real["scan_plain_ms"],
+        "max_abs_err": max_abs,
+        # the five launches of one phase-5 smooth at the main path's shapes
+        "ms": ms, "plain_ms": sum(r["plain_ms"] for r in scans),
+        "bound_ms": sum(r["bound_ms"] for r in scans), "bound_by": "bytes",
+        "bound_share": sum(r["bound_ms"] for r in scans) / ms,
+        "library_ms": sum(r["library_ms"] for r in scans),
+        "library_call": "torch.cumsum / torch.cummax along the last axis (unsegmented)",
+        "per_launch": scans,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from bfqzip_tpu import cli as jax_cli
-from bfqzip_tpu.utils import native
+from bfqzip_tpu_torch.utils import native
 from bfqzip_tpu_torch import cli
 
 from conftest import golden_path

@@ -19,7 +19,7 @@ from bfqzip_tpu import SmoothConfig
 from bfqzip_tpu.external import SeqChunkOps as JaxSeqChunkOps
 from bfqzip_tpu.external import smooth_fastq_external as jax_external
 from bfqzip_tpu.io.fastq import read_fastq
-from bfqzip_tpu.utils import native
+from bfqzip_tpu_torch.utils import native
 from bfqzip_tpu_torch.external import SeqChunkOps, smooth_fastq_external
 from bfqzip_tpu_torch.ops.scan import LocalScanOps
 

@@ -12,7 +12,7 @@ import torch
 from bfqzip_tpu import SmoothConfig, alphabet
 from bfqzip_tpu.external import smooth_fastq_external as jax_external
 from bfqzip_tpu.io.fastq import ReadBatch, format_fastq, read_fastq
-from bfqzip_tpu.utils import native
+from bfqzip_tpu_torch.utils import native
 from bfqzip_tpu_torch.engine import smooth_fastq
 from bfqzip_tpu_torch.external import smooth_fastq_external
 from bfqzip_tpu_torch.ops import cuda_scan

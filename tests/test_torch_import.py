@@ -1,5 +1,6 @@
-"""The PyTorch port imports without jax, builds only with nvcc, and sends
-CPU tensors to the plain scan without counting a kernel launch."""
+"""The PyTorch port imports without jax and without the JAX package
+bfqzip_tpu, builds only with nvcc, and sends CPU tensors to the plain scan
+without counting a kernel launch."""
 
 import os
 import pkgutil
@@ -28,21 +29,28 @@ def _modules():
     return names
 
 
+_BLOCKED = ("jax", "jaxlib", "bfqzip_tpu")
+
 _BLOCK_JAX = """
 import importlib, sys
 
+BLOCKED = %r
+
+def blocked(name):
+    return any(name == b or name.startswith(b + ".") for b in BLOCKED)
+
 class BlockJax:
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith("jax.") or name == "jaxlib" or name.startswith("jaxlib."):
-            raise ImportError(f"jax is blocked: {name}")
+        if blocked(name):
+            raise ImportError(f"blocked: {name}")
         return None
 
 sys.meta_path.insert(0, BlockJax())
 for mod in sys.argv[1:]:
     importlib.import_module(mod)
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
+assert not any(blocked(m) for m in sys.modules)
 print("imported", len(sys.argv) - 1)
-"""
+""" % (_BLOCKED,)
 
 
 def test_every_module_imports_with_jax_blocked():
@@ -56,13 +64,37 @@ def test_every_module_imports_with_jax_blocked():
     assert f"imported {len(mods)}" in proc.stdout
 
 
-def test_no_jax_import_in_package_or_smoke():
-    pattern = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.M)
+def _sources():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(PKG_DIR):
         files += [os.path.join(root, f) for f in names if f.endswith((".py", ".cu"))]
-    offenders = [f for f in files if pattern.search(open(f).read())]
-    assert not offenders
+    return files
+
+
+def _import_pattern(package: str):
+    """A line that imports `package` or a module inside it
+    (bfqzip_tpu_torch is another name and does not match bfqzip_tpu)."""
+    return re.compile(rf"^\s*(import|from)\s+{package}([\s.,]|$)", re.M)
+
+
+def _importers(package: str) -> list:
+    pattern = _import_pattern(package)
+    return [f for f in _sources() if pattern.search(open(f).read())]
+
+
+def test_no_jax_import_in_package_or_smoke():
+    assert not _importers("jax")
+
+
+def test_no_jax_package_import_in_port_or_smoke():
+    assert not _importers("bfqzip_tpu")
+
+
+def test_import_scan_catches_a_jax_package_import():
+    pattern = _import_pattern("bfqzip_tpu")
+    assert pattern.search("    from bfqzip_tpu.io.spill import Spill\n")
+    assert pattern.search("import bfqzip_tpu\n")
+    assert not pattern.search("from bfqzip_tpu_torch.io.spill import Spill\n")
 
 
 def test_build_raises_without_nvcc(monkeypatch):

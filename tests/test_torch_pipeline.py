@@ -11,7 +11,7 @@ import shutil
 import pytest
 
 from bfqzip_tpu.config import PipelineConfig, SmoothConfig
-from bfqzip_tpu.utils import native
+from bfqzip_tpu_torch.utils import native
 from bfqzip_tpu.pipeline import restore_fastq as jax_restore_fastq
 from bfqzip_tpu.pipeline import run_pipeline as jax_run_pipeline
 from bfqzip_tpu_torch.pipeline import decompress_stream, restore_fastq, run_pipeline
