@@ -12,6 +12,8 @@ utils.native / reorder / debug / logging, and the CLI parser).
   bfqzip_tpu_torch.cli       python -m bfqzip_tpu_torch (same flags as bfqzip_tpu)
   bfqzip_tpu_torch.pipeline  steps 1-5 with the artifact cache, restore, decompress
   bfqzip_tpu_torch.engine    smooth_fastq / smooth_arrays_step
+  bfqzip_tpu_torch.parallel  torch.distributed ranks: the sequence-sharded global
+                             EBWT pipeline, block parallelism, sample sort
   bfqzip_tpu_torch.ops       suffix build, scans, rank/LF, smoothing, inversion, rANS
   bfqzip_tpu_torch.models    BQZH header codec, BQZE decoder
   bfqzip_tpu_torch.convert   numpy <-> tensor state (EBWT, read batches)

@@ -5,8 +5,10 @@
 
 Without --cpu the device is `cuda`, and a run without a card exits non-zero
 with the reason on stderr.  --ext-mem [--mem MB] runs the out-of-core path
-under a device-memory budget.  --mesh is not ported yet: it exits 2.
---restore and --decompress run the host codecs and need no card.
+under a device-memory budget.  --mesh D builds ONE global EBWT over D ranks:
+D cards on CUDA (fewer cards exit non-zero, naming both counts), D gloo
+ranks with --cpu.  --restore and --decompress run the host codecs; an old
+BQZE stream inverts its EBWT on the card, or on the CPU under --cpu.
 """
 
 from __future__ import annotations
@@ -73,11 +75,6 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     device = "cpu" if args.cpu else "cuda"
 
-    if args.mesh:
-        print("error: --mesh is not ported yet to bfqzip_tpu_torch "
-              "(ROADMAP.md Queue 1 item 12); use python -m bfqzip_tpu", file=sys.stderr)
-        return 2
-
     if args.decompress:
         from bfqzip_tpu_torch.pipeline import decompress_stream
 
@@ -85,7 +82,7 @@ def main(argv=None) -> int:
             print("error: --decompress -o takes exactly one input", file=sys.stderr)
             return 2
         for path in args.input:
-            out = decompress_stream(path, args.out or None)
+            out = decompress_stream(path, args.out or None, device)
             print(f"{path} -> {out}")
         return 0
 
@@ -96,7 +93,7 @@ def main(argv=None) -> int:
             print("error: --restore takes the output base name", file=sys.stderr)
             return 2
         t0 = time.time()
-        out = restore_fastq(args.input[0], args.out or None)
+        out = restore_fastq(args.input[0], args.out or None, device)
         dt = max(time.time() - t0, 1e-9)
         outs = out if isinstance(out, tuple) else (out,)
         mb = sum(os.path.getsize(p) for p in outs) / 1e6
@@ -151,6 +148,14 @@ def main(argv=None) -> int:
     except RuntimeError as e:
         print(f"error: {e} (pass --cpu to run on the CPU)", file=sys.stderr)
         return 1
+    if args.mesh > 1:
+        from bfqzip_tpu_torch.parallel.mesh import check_world
+
+        try:
+            check_world(args.mesh, device)
+        except ValueError as e:
+            print(f"error: --mesh {args.mesh}: {e}", file=sys.stderr)
+            return 1
 
     result = run_pipeline(
         args.input,
@@ -159,6 +164,7 @@ def main(argv=None) -> int:
         check=args.check,
         reorder=args.reorder,
         blocks=args.threads,
+        mesh_shards=args.mesh,
         ext_mem_mb=args.mem if args.ext_mem else 0,
         debug_dump=args.debug_dump,
         device=device,

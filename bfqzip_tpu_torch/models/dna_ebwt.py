@@ -3,7 +3,8 @@
 Port of bfqzip_tpu/models/dna_ebwt.py::decode_dna_stream, for restoring
 archives written by earlier versions: the pipeline no longer writes BQZE,
 so the encoder is not ported.  The EBWT is inverted by the port's lf_array
-and LF walk on the given device.
+and LF walk on the given device: the card unless the caller asks for the
+CPU (a CUDA device without a card raises).
 
 Container "BQZE" v1:
   magic[4] 'BQZE', u8 version, u8 flags, u16 pad
@@ -27,12 +28,13 @@ from bfqzip_tpu_torch.ops.rank import lf_array
 MAGIC = b"BQZE"
 
 
-def decode_dna_stream(blob: bytes, device="cpu") -> bytes:
+def decode_dna_stream(blob: bytes, device="cuda") -> bytes:
     if blob[:4] != MAGIC:
         raise ValueError("not a bfqzip EBWT container")
     ver, _flags, n_reads, width, n, raw_len = struct.unpack_from("<BBxxIIQQ", blob, 4)
     if ver != 1:
         raise ValueError(f"unsupported BQZE version {ver}")
+    dev = resolve_device(device)
     bwt_ascii = np.asarray(rans.decode_blob(blob[32:]))
     if bwt_ascii.size != n:
         raise ValueError(f"BQZE EBWT has {bwt_ascii.size} symbols, header says {n}")
@@ -40,7 +42,7 @@ def decode_dna_stream(blob: bytes, device="cpu") -> bytes:
     bwt = alphabet.encode(bwt_ascii)
     n_pad = -(-n // 1024) * 1024
     bwt_p = torch.as_tensor(np.pad(bwt, (0, n_pad - n), constant_values=alphabet.SIGMA))
-    bwt_p = bwt_p.to(resolve_device(device))
+    bwt_p = bwt_p.to(dev)
     valid = torch.arange(n_pad, dtype=torch.int32, device=bwt_p.device) < n
     lf = lf_array(bwt_p, valid)
     inv = invert(bwt_p, bwt_p, torch.zeros_like(bwt_p), lf, n_reads, width)

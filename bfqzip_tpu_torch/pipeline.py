@@ -11,11 +11,14 @@ explicit torch device and the host codecs on the port's jax-free rANS:
   step 5  entropy coding                 -> <stream>.rans (and .7z / .bsc when
                                             those binaries exist)
 
-Block mode (-t) always runs its blocks one after another on the device.
-Out-of-core (`ext_mem_mb`) fuses steps 1-3 in external.smooth_fastq_external
-under a device-memory budget, as the JAX pipeline does, and skips the
-artifacts.  The sequence-sharded mesh (`mesh_shards`) is not ported yet and
-raises NotImplementedError.
+Block mode (-t) runs one block per rank when there are enough devices
+(cards on CUDA, cores for gloo ranks on the CPU) and the blocks are equal,
+as the JAX pipeline's mesh route does (parallel/block.py); otherwise one
+block after another on the device.  Out-of-core (`ext_mem_mb`) fuses steps
+1-3 in external.smooth_fastq_external under a device-memory budget, as the
+JAX pipeline does, and skips the artifacts.  So does the sequence-sharded
+route (`mesh_shards` > 1): ONE global EBWT over that many ranks
+(parallel/global_pipeline.py), one card each on CUDA, gloo ranks on the CPU.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from bfqzip_tpu_torch.convert import batch_to_tensors
 from bfqzip_tpu_torch.engine import resolve_device, smooth_arrays_step, smooth_fastq
 from bfqzip_tpu_torch.ops import rans
 from bfqzip_tpu_torch.ops.suffix import build_ebwt
+from bfqzip_tpu_torch.parallel import mesh
 from bfqzip_tpu_torch.utils.logging import StepLogger
 
 ZIP7 = shutil.which("7z")
@@ -237,14 +241,15 @@ def _write_pair(out_path: str, body: bytes, n1: int):
     return p1, p2
 
 
-def restore_fastq(base: str, out_path: Optional[str] = None):
+def restore_fastq(base: str, out_path: Optional[str] = None, device="cuda"):
     """Reassemble a FASTQ from compressed stream containers.
 
     Mode-1 archives (BASE.fq.rans) decode directly; mode-2/3 archives
     interleave BASE.fq.dna.rans + BASE.fq.qs.rans with BASE.h.rans headers
     when present ('@' otherwise).  Paired archives (BASE.paired.meta.json
     present) restore to a _1/_2 FASTQ pair.  Returns the single output path,
-    or the (path_1, path_2) tuple for paired archives.
+    or the (path_1, path_2) tuple for paired archives.  `device` inverts a
+    BQZE stream's EBWT (see decompress_stream).
     """
     out_path = out_path or base + ".restored.fastq"
     paired_n1 = None
@@ -260,12 +265,12 @@ def restore_fastq(base: str, out_path: Optional[str] = None):
             if not os.path.exists(arc):
                 raise FileNotFoundError(f"paired archive missing: {arc}")
             with open(path, "wb") as f:
-                f.write(_decode_blob_file(arc))
+                f.write(_decode_blob_file(arc, device))
         return p1, p2
 
     one = base + ".fq.rans"
     if os.path.exists(one):
-        data = _decode_blob_file(one)
+        data = _decode_blob_file(one, device)
         if paired_n1 is not None:  # merged archive of a paired run
             return _write_pair(out_path, data, paired_n1)
         with open(out_path, "wb") as f:
@@ -274,8 +279,8 @@ def restore_fastq(base: str, out_path: Optional[str] = None):
     dna_p, qs_p, h_p = base + ".fq.dna.rans", base + ".fq.qs.rans", base + ".h.rans"
     if not (os.path.exists(dna_p) and os.path.exists(qs_p)):
         raise FileNotFoundError(f"no stream archives found at {base}(.fq|.fq.dna|.fq.qs).rans")
-    dna = _decode_blob_file(dna_p).split(b"\n")
-    qs = _decode_blob_file(qs_p).split(b"\n")
+    dna = _decode_blob_file(dna_p, device).split(b"\n")
+    qs = _decode_blob_file(qs_p, device).split(b"\n")
     if dna and dna[-1] == b"":
         dna.pop()
     if qs and qs[-1] == b"":
@@ -283,7 +288,7 @@ def restore_fastq(base: str, out_path: Optional[str] = None):
     if len(dna) != len(qs):
         raise ValueError(f"stream record mismatch: {len(dna)} DNA vs {len(qs)} QS lines")
     if os.path.exists(h_p):
-        headers = _decode_blob_file(h_p).split(b"\n")
+        headers = _decode_blob_file(h_p, device).split(b"\n")
         if headers and headers[-1] == b"":
             headers.pop()
         if len(headers) != len(dna):
@@ -301,17 +306,18 @@ def restore_fastq(base: str, out_path: Optional[str] = None):
     return out_path
 
 
-def _decode_blob_file(path: str) -> bytes:
-    tmp = decompress_stream(path, path + ".dec.tmp")
+def _decode_blob_file(path: str, device) -> bytes:
+    tmp = decompress_stream(path, path + ".dec.tmp", device)
     with open(tmp, "rb") as f:
         data = f.read()
     os.remove(tmp)
     return data
 
 
-def decompress_stream(path: str, out_path: Optional[str] = None) -> str:
-    """Decode any bfqzip container back to the original stream bytes, on
-    the host (BQZE archives invert their EBWT on the CPU)."""
+def decompress_stream(path: str, out_path: Optional[str] = None, device="cuda") -> str:
+    """Decode any bfqzip container back to the original stream bytes.  The
+    header and rANS containers decode on the host; a BQZE archive inverts
+    its EBWT on `device` (a CUDA device without a card raises)."""
     blob = open(path, "rb").read()
     if blob[:4] == b"BQZH":
         from bfqzip_tpu_torch.models.headers import decode_headers
@@ -320,7 +326,7 @@ def decompress_stream(path: str, out_path: Optional[str] = None) -> str:
     elif blob[:4] == b"BQZE":
         from bfqzip_tpu_torch.models.dna_ebwt import decode_dna_stream
 
-        payload = decode_dna_stream(blob)
+        payload = decode_dna_stream(blob, device)
     elif blob[:4] == b"BQZC":
         payload = rans.decode_blob(blob).tobytes()
     elif native.available():
@@ -347,13 +353,11 @@ def run_pipeline(
     device="cuda",
 ) -> PipelineResult:
     """The full compression pipeline on `device` (a CUDA device without a
-    card raises)."""
-    if mesh_shards:
-        raise NotImplementedError(
-            "the sequence-sharded mesh (mesh_shards) is not ported to bfqzip_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 12)"
-        )
+    card raises, and so does a CUDA `mesh_shards` above the card count)."""
     device = resolve_device(device)
+    sharded = mesh_shards > 1 and not cfg.original and not ext_mem_mb  # --ext-mem goes first
+    if sharded:
+        mesh.check_world(mesh_shards, device)
     base = out_base or inputs[0]
     log = StepLogger(logfile or base + ".log", device)
     log.command_line()
@@ -404,18 +408,28 @@ def run_pipeline(
                     batch, cfg.smooth, mem_bytes=ext_mem_mb << 20, device=device, spill=spill,
                     report=ext_report,
                 )
-            headers_on = cfg.headers or cfg.mode == 3
-            if headers_on and batch.headers is not None:
-                with open(base + ".h", "wb") as f:
-                    f.write(b"\n".join(batch.headers) + b"\n")
-            hdrs = batch.headers if headers_on else None
-            with open(base + ".fq", "wb") as f:
-                f.write(format_fastq(smoothed, headers=hdrs))
+            _write_smoothed(batch, smoothed, base, cfg)
         finally:
             if spill is not None:
                 spill.close()
         result = _finish_pipeline(inputs, cfg, base, log, stats, paired_split)
         result.report["external"] = ext_report  # chunk / segment counts, stage seconds and RSS
+        return result
+
+    # ---- sequence-sharded: ONE global EBWT over mesh_shards ranks spawned
+    # from this process, smoothed and inverted across them; steps 1-3 fuse ----
+    if sharded:
+        from bfqzip_tpu_torch.parallel import smooth_fastq_sharded
+
+        sharded_reports: List[dict] = []
+        with log.step(f"steps1-3: sequence-sharded over {mesh_shards} ranks"):
+            smoothed, stats = smooth_fastq_sharded(
+                batch, cfg.smooth, shards=mesh_shards, device=device,
+                work_dir=os.path.dirname(os.path.abspath(base)), reports=sharded_reports,
+            )
+        _write_smoothed(batch, smoothed, base, cfg)
+        result = _finish_pipeline(inputs, cfg, base, log, stats, paired_split)
+        result.report["sharded"] = sharded_reports  # per rank: attempts, stage ms, bytes
         return result
 
     # ---- step 1 with artifact caching, content-keyed ----
@@ -448,6 +462,17 @@ def run_pipeline(
             f.write(format_fastq(smoothed, headers=hdrs))
 
     return _finish_pipeline(inputs, cfg, base, log, stats, paired_split)
+
+
+def _write_smoothed(batch: ReadBatch, smoothed: ReadBatch, base: str, cfg: PipelineConfig) -> None:
+    """The .h (when headers are kept) and .fq files of a fused steps 1-3 run."""
+    headers_on = cfg.headers or cfg.mode == 3
+    if headers_on and batch.headers is not None:
+        with open(base + ".h", "wb") as f:
+            f.write(b"\n".join(batch.headers) + b"\n")
+    hdrs = batch.headers if headers_on else None
+    with open(base + ".fq", "wb") as f:
+        f.write(format_fastq(smoothed, headers=hdrs))
 
 
 def _finish_pipeline(inputs, cfg, base, log, stats, paired_split) -> PipelineResult:
@@ -539,18 +564,38 @@ def _block_permutation(n: int, blocks: int, paired_split: Optional[int]):
     return np.concatenate(idx), bounds
 
 
+def _ranks_available(device: torch.device) -> int:
+    """How many ranks block mode may run at once: one card each on CUDA,
+    one core each for gloo ranks on the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device_count()
+    return os.cpu_count() or 1
+
+
 def _blockwise_step1_3(batch, base, cfg, blocks, log, device, paired_split=None):
     """Block mode: an independent EBWT per ~equal read block, outputs merged
-    in block order; the blocks run one after another on the device.
+    in block order.  With equal blocks and a rank for each, every block runs
+    at once on its own rank (parallel/block.py, the JAX package's mesh
+    route); otherwise the blocks run one after another on the device.  Both
+    routes give the same bytes.
 
-    Every block shorter than the largest is filled up with dummy 1-base 'A'
-    reads of quality '!', and those are real reads in that block's EBWT: the
-    JAX package's sequential block route adds them, so its output depends on
-    them.  They are a semantic of that CLI, kept for byte equality, not a
-    compile-shape workaround."""
+    In the sequential route every block shorter than the largest is filled
+    up with dummy 1-base 'A' reads of quality '!', and those are real reads
+    in that block's EBWT: the JAX package's sequential block route adds
+    them, so its output depends on them.  They are a semantic of that CLI,
+    kept for byte equality, not a compile-shape workaround."""
     n = batch.num_reads
     perm, bounds = _block_permutation(n, blocks, paired_split)
     work = ReadBatch(seqs=batch.seqs[perm], quals=batch.quals[perm], lengths=batch.lengths[perm])
+
+    if len({hi - lo for lo, hi in bounds}) == 1 and _ranks_available(device) >= blocks:
+        from bfqzip_tpu_torch.parallel import block_smooth_fastq
+
+        with log.step(f"blocks 1-{blocks}: rank-parallel EBWT+smooth+invert"):
+            merged_w, _ = block_smooth_fastq(work, cfg.smooth, blocks, device=device,
+                                             work_dir=os.path.dirname(os.path.abspath(base)))
+        _write_blocks(batch, merged_w, perm, base, cfg)
+        return
 
     size = max(hi - lo for lo, hi in bounds)
     parts = []
@@ -576,9 +621,14 @@ def _blockwise_step1_3(batch, base, cfg, blocks, log, device, paired_split=None)
         quals=np.concatenate([np.pad(p.quals, ((0, 0), (0, width - p.max_len))) for p in parts]),
         lengths=np.concatenate([p.lengths for p in parts]),
     )
+    _write_blocks(batch, merged_w, perm, base, cfg)
 
-    # back to input order: file-1 reads then file-2 reads (the paired
-    # re-split in _finish_pipeline cuts at paired_split)
+
+def _write_blocks(batch, merged_w, perm, base, cfg) -> None:
+    """The .fq of block mode: the blocks' reads (in permuted order) back in
+    input order, file-1 reads then file-2 reads (the paired re-split in
+    _finish_pipeline cuts at paired_split)."""
+    n = batch.num_reads
     inv = np.empty_like(perm)
     inv[perm] = np.arange(n)
     merged = ReadBatch(

@@ -53,10 +53,32 @@ Phases, each printed on its own line; the first failure exits non-zero:
                   byte-equal to smooth_fastq.  In (a), (c) and (d) one
                   middle segment is rerun with the plain scans on its
                   recorded window and carries: every output equal
+  9. sharded      the sequence-sharded pipeline (bfqzip_tpu_torch.parallel):
+                  (a) smooth_fastq_sharded as the one rank of an NCCL group,
+                  at the largest count (<= 2M) of phase 5's reads whose peak
+                  stays under 70 GB, sized from the bytes per position of a
+                  200K-read probe: byte-equal to smooth_fastq with equal
+                  stats, best and median of 3 timed calls after a warm-up,
+                  stage ms, peak device bytes, seg_scan launches per call,
+                  collective bytes, and each launch of one call held against
+                  the plain version and timed beside its bound; (b) 4 ranks
+                  sharing the card through a gloo group (collectives staged
+                  through the host, bytes counted): the flat body at 200K
+                  reads, the doubling body at 30K x 150 bp and a forced
+                  overflow whose retry gives the same bytes, each byte-equal
+                  to smooth_fastq, then block_smooth_fastq on 4 ranks
+                  byte-equal to the pipeline's block route; (c) NCCL with one
+                  rank per card where there are >= 2 cards (else a line says
+                  why not); (d) --mesh with one rank more than the cards
+                  exits non-zero naming both counts
 Then a JSON line describing each kernel (its times are the sums over phase
 5's launches), the card's name and power limit, and last the result line
 {"ok": true, "device": {...}}.  Imports nothing of jax or of the JAX package
 bfqzip_tpu.
+
+`python3 chip_smoke.py sharded` runs phases 1, 2 and 9 alone, and `python3
+chip_smoke.py cards` phases 1, 2 and 9 (c) alone at 2M reads on a machine
+with two or more cards; neither prints a kernels line or a result line.
 """
 
 from __future__ import annotations
@@ -68,6 +90,11 @@ import subprocess
 import sys
 import time
 
+# Expandable segments keep the caching allocator from fragmenting across
+# phases: phase 9 (a) is sized a few GB under the card's memory, and after
+# phases 5-8 it was refused with up to 27 GB reserved but unallocated.  Set
+# before torch first touches the card; the ranks the script spawns inherit it.
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden")
 N_BENCH = 20_400_000  # 200K reads x 102 positions
@@ -85,6 +112,14 @@ BUDGET_WIDTHS = (101, 151, 201, 251, 323, 330, 600, 1000)  # flat to 323 bp, the
 BUDGET_CHUNK_POS = 20_000_000  # positions per measured chunk sort
 WIDE_READS, WIDE_LEN = 400_000, 250  # 100.4M positions under a 2 GiB budget
 WORK = os.path.join(ROOT, "build", "chip_smoke")  # gitignored
+# phase 9, the sequence-sharded pipeline
+SHARD_PROBE_READS = 200_000  # (a) the world-1 run whose peak bytes per position size (a)
+SHARD_PEAK_BYTES = 70e9  # (a)'s peak device bytes stay under this
+SHARD_TARGET_BYTES = 64e9  # (a)'s read count is sized for this much, 6 GB under it
+SHARD_RANKS = 4  # (b) ranks sharing the one card through a gloo group
+SHARD_FLAT_READS = 200_000  # (b) flat body, block mode
+SHARD_LONG_READS, SHARD_LONG_LEN = 30_000, 150  # (b) wp = 151 > 120: the doubling body
+SHARD_RETRY_READS, SHARD_RETRY_FACTOR = 50_000, 0.5  # (b) a capacity that overflows first
 
 
 def phase(name: str, **fields) -> None:
@@ -438,43 +473,72 @@ def main_path_launches(ebwt, cfg) -> list:
     scan, so the closest one computes an unsegmented one; the port never
     calls it.  `copy_ms` times a device copy of x (x read once, written
     once): the memory rate the card reaches in practice on these bytes."""
+    from bfqzip_tpu_torch.ops.smooth import smooth
+
+    with _ScanRecorder() as rec:
+        smooth(ebwt, cfg, pre=ebwt.pre)
+    return time_launches(rec.calls, library=True)
+
+
+class _ScanRecorder:
+    """While active, every seg_scan kernel call keeps its inputs (copied to
+    the host with `to_host`, so that a run near the card's memory is not
+    pushed over it) in `calls`."""
+
+    def __init__(self, to_host: bool = False):
+        from bfqzip_tpu_torch.ops import cuda_scan
+
+        self.cuda_scan, self.kernel, self.to_host, self.calls = cuda_scan, cuda_scan.seg_scan, to_host, []
+
+    def __enter__(self):
+        def recording(x, flag, op, init, reverse=False):
+            keep = (x, flag, op, init, reverse)
+            if self.to_host:
+                keep = _map_tensors(keep, lambda t: t.cpu())
+            self.calls.append(keep)
+            return self.kernel(x, flag, op, init, reverse)
+
+        self.cuda_scan.seg_scan = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.cuda_scan.seg_scan = self.kernel
+        return False
+
+
+def time_launches(calls, library: bool) -> list:
+    """Each recorded seg_scan call on the card: the kernel against the plain
+    version (bit-exact), its ms, the plain version's ms and the bound; with
+    `library`, also the ms of one unsegmented PyTorch call (see
+    main_path_launches) and of a device copy of x."""
     import torch
 
     from bfqzip_tpu_torch.ops import cuda_scan
-    from bfqzip_tpu_torch.ops.smooth import smooth
 
-    calls = []
     kernel = cuda_scan.seg_scan
-
-    def recording(x, flag, op, init, reverse=False):
-        calls.append((x, flag, op, init, reverse))
-        return kernel(x, flag, op, init, reverse)
-
-    cuda_scan.seg_scan = recording
-    try:
-        smooth(ebwt, cfg, pre=ebwt.pre)
-    finally:
-        cuda_scan.seg_scan = kernel
     plain = plain_ops()
     out = []
-    for x, f, op, init, reverse in calls:
+    while calls:
+        x, f, op, init, reverse = _map_tensors(calls.pop(0), lambda t: t.cuda())
         case = f"main-path {op}/{x.dtype}/{tuple(x.shape)}/rev={reverse}"
         _check(kernel(x, f, op, init, reverse), plain._scan(x, f, op, init, reverse), case)
-        if op == "max":
-            library = lambda: torch.cummax(x, dim=-1)  # noqa: E731
-        else:
-            library = lambda: torch.cumsum(x, dim=-1, dtype=x.dtype)  # noqa: E731
         ms = cuda_ms(lambda: kernel(x, f, op, init, reverse), 20)
-        copy = torch.empty_like(x)
-        out.append({"op": op, "dtype": str(x.dtype).split(".")[-1], "shape": list(x.shape),
-                    "reverse": reverse, "flags": int(f.sum()), "ms": ms,
-                    "plain_ms": cuda_ms(lambda: plain._scan(x, f, op, init, reverse), 2),
-                    "library_ms": cuda_ms(library, 10),
-                    "library_call": "torch.cummax" if op == "max" else "torch.cumsum",
-                    "bound_ms": bound_ms(x), "bound_share": bound_ms(x) / ms,
-                    "copy_ms": cuda_ms(lambda: copy.copy_(x), 20)})
-        del copy
-    del calls
+        row = {"op": op, "dtype": str(x.dtype).split(".")[-1], "shape": list(x.shape),
+               "reverse": reverse, "flags": int(f.sum()), "ms": ms,
+               "plain_ms": cuda_ms(lambda: plain._scan(x, f, op, init, reverse), 2),
+               "bound_ms": bound_ms(x), "bound_share": bound_ms(x) / ms}
+        if library:
+            if op == "max":
+                call = lambda: torch.cummax(x, dim=-1)  # noqa: E731
+            else:
+                call = lambda: torch.cumsum(x, dim=-1, dtype=x.dtype)  # noqa: E731
+            copy = torch.empty_like(x)
+            row.update(library_ms=cuda_ms(call, 10),
+                       library_call="torch.cummax" if op == "max" else "torch.cumsum",
+                       copy_ms=cuda_ms(lambda: copy.copy_(x), 20))
+            del copy
+        out.append(row)
+        del x, f
     return out
 
 
@@ -991,6 +1055,286 @@ def budget_by_width(cfg) -> dict:
     return res
 
 
+def _same_reads(got, want) -> bool:
+    """Equal lengths, and equal bases and qualities up to each read's length
+    (the sharded path returns the raw width)."""
+    import numpy as np
+
+    w = int(want.lengths.max())
+    return (np.array_equal(got.lengths, want.lengths) and np.array_equal(got.seqs[:, :w], want.seqs[:, :w])
+            and np.array_equal(got.quals[:, :w], want.quals[:, :w]))
+
+
+def _prefix(batch, k: int):
+    from bfqzip_tpu_torch.io import ReadBatch
+
+    return ReadBatch(seqs=batch.seqs[:k], quals=batch.quals[:k], lengths=batch.lengths[:k])
+
+
+def _rank_stages(reports) -> dict:
+    """Each stage's ms and peak device bytes on the rank where it is largest."""
+    keys = [k for k in reports[0] if k.endswith(("_ms", "_peak_bytes"))]
+    return {k: max(r[k] for r in reports) for k in keys}
+
+
+def sharded_world1(batch) -> dict:
+    """Phase 9 (a): smooth_fastq_sharded as the one rank of an NCCL group on
+    the card, at the largest read count (<= 2M) whose peak stays under
+    SHARD_PEAK_BYTES, sized from the peak bytes per position of a
+    SHARD_PROBE_READS run."""
+    import torch
+    import torch.distributed as dist
+
+    from bfqzip_tpu_torch import SmoothConfig
+    from bfqzip_tpu_torch.engine import smooth_fastq
+    from bfqzip_tpu_torch.ops import cuda_scan
+    from bfqzip_tpu_torch.parallel import mesh, smooth_fastq_sharded
+
+    cfg = SmoothConfig()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # earlier phases' cached blocks would fragment this one's
+    store = os.path.join(WORK, f"nccl_world1_{os.getpid()}")
+    comm = mesh.init_group(0, 1, "cuda", store)
+    try:
+        def run(b, reports=None):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out, stats = smooth_fastq_sharded(b, cfg, comm=comm, reports=reports)
+            torch.cuda.synchronize()
+            return out, stats, time.perf_counter() - t
+
+        def peak_of(reports):  # a report resets the peak at each stage and records it
+            return max(v for r in reports for k, v in r.items() if k.endswith("_peak_bytes"))
+
+        probe = _prefix(batch, SHARD_PROBE_READS)
+        run(probe)  # warm-up: NCCL's first collectives
+        base_bytes = torch.cuda.memory_allocated()
+        reports = []
+        out, stats, _ = run(probe, reports)
+        probe_bpp = (peak_of(reports) - base_bytes) / (SHARD_PROBE_READS * (REAL_LEN + 1))
+        want, want_stats = smooth_fastq(probe, cfg, device="cuda")
+        if not _same_reads(out, want) or stats != want_stats:
+            fail(f"sharded world 1 at {SHARD_PROBE_READS} reads differs from smooth_fastq")
+        count = min(REAL_READS, int(SHARD_TARGET_BYTES / probe_bpp / (REAL_LEN + 1)))
+        sub = _prefix(batch, count)
+        want, want_stats = smooth_fastq(sub, cfg, device="cuda")
+        torch.cuda.empty_cache()
+        run(sub)  # warm-up at this size
+        torch.cuda.synchronize()
+        base_bytes = torch.cuda.memory_allocated()
+        run_s, launches, reports = [], [], []
+        for _ in range(3):
+            cuda_scan.launches = 0
+            out, stats, sec = run(sub, reports)
+            launches.append(cuda_scan.launches)
+            run_s.append(sec)
+        peak = peak_of(reports) - base_bytes
+        if not _same_reads(out, want) or stats != want_stats:
+            fail(f"sharded world 1 at {count} reads differs from smooth_fastq")
+        if peak > SHARD_PEAK_BYTES:
+            fail(f"sharded world 1 at {count} reads: peak {peak} bytes passes {SHARD_PEAK_BYTES}")
+        if min(launches) < 5:
+            fail(f"seg_scan launched {launches} times per sharded call, expected >= 5")
+        # each seg_scan launch of one more call, on its own inputs at the
+        # rank's shapes, against the plain version and the bound
+        with _ScanRecorder(to_host=True) as rec:
+            run(sub)
+        scans = time_launches(rec.calls, library=False)
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    rep = reports[-1]
+    res = {"backend": "nccl", "ranks": 1, "probe_reads": SHARD_PROBE_READS,
+           "probe_bytes_per_pos": probe_bpp, "reads": count, "n_pad": count * (REAL_LEN + 1),
+           "run_s": run_s, "best_s": min(run_s), "median_s": sorted(run_s)[1],
+           "bases_per_s": count * REAL_LEN / min(run_s), "peak_bytes": peak,
+           "bytes_per_pos": peak / (count * (REAL_LEN + 1)), "launches_per_call": launches,
+           "stages": _rank_stages([rep]), "collective_bytes": rep["sent_bytes"],
+           "staged_bytes": rep["staged_bytes"], "attempts": rep["attempts"],
+           "byte_equal_to_smooth_fastq": True, "stats": stats, "scan_launches": scans}
+    phase("sharded_world1", **res)
+    return res
+
+
+def sharded_ranks(batch) -> dict:
+    """Phase 9 (b): SHARD_RANKS spawned ranks sharing the one card through a
+    gloo group (each collective staged through the host): the flat body,
+    the doubling body and a forced overflow, each byte-equal to
+    smooth_fastq; then block_smooth_fastq on as many ranks, byte-equal to
+    the pipeline's sequential block route."""
+    import torch
+
+    from bfqzip_tpu_torch import SmoothConfig
+    from bfqzip_tpu_torch.config import PipelineConfig
+    from bfqzip_tpu_torch.engine import smooth_fastq
+    from bfqzip_tpu_torch.io import ReadBatch, format_fastq, read_fastq
+    from bfqzip_tpu_torch.parallel import block_smooth_fastq, smooth_fastq_sharded
+    from bfqzip_tpu_torch.pipeline import run_pipeline
+
+    cfg = SmoothConfig()
+    long_batch, _ = real_batch(SHARD_LONG_READS, SHARD_LONG_LEN)
+    cases = {"flat": (_prefix(batch, SHARD_FLAT_READS), 2.5),
+             "doubling": (long_batch, 2.5),
+             "retry": (_prefix(batch, SHARD_RETRY_READS), SHARD_RETRY_FACTOR)}
+    res = {}
+    for name, (b, factor) in cases.items():
+        want, want_stats = smooth_fastq(b, cfg, device="cuda")
+        reports = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got, stats = smooth_fastq_sharded(b, cfg, shards=SHARD_RANKS, device="cuda", backend="gloo",
+                                          capacity_factor=factor, work_dir=WORK, reports=reports)
+        seconds = time.perf_counter() - t
+        if not _same_reads(got, want) or stats != want_stats:
+            fail(f"sharded over {SHARD_RANKS} gloo ranks ({name}) differs from smooth_fastq")
+        attempts = reports[0]["attempts"]
+        if name == "retry" and not (len(attempts) > 1 and attempts[0]["overflow"] > 0):
+            fail(f"capacity factor {factor} did not overflow first: attempts {attempts}")
+        launches = [r["seg_scan_launches"] for r in reports]
+        if min(launches) < 5:
+            fail(f"seg_scan launched {launches} times on the ranks ({name}), expected >= 5 each")
+        res[name] = {"reads": b.num_reads, "read_len": int(b.seqs.shape[1]),
+                     "capacity_factor": factor, "seconds": seconds, "attempts": attempts,
+                     "stages": _rank_stages(reports),
+                     "collective_bytes": sum(r["sent_bytes"] for r in reports),
+                     "staged_bytes": sum(r["staged_bytes"] for r in reports),
+                     "launches_per_rank": launches, "byte_equal_to_smooth_fastq": True}
+
+    # block mode: the ranks against the pipeline's route for this card count
+    fq = os.path.join(WORK, "shard_blocks.fastq")
+    b = _prefix(batch, SHARD_FLAT_READS)
+    with open(fq, "wb") as f:
+        f.write(format_fastq(ReadBatch(seqs=b.seqs, quals=b.quals, lengths=b.lengths,
+                                       headers=[b"@r%d" % i for i in range(b.num_reads)])))
+    seq_base = os.path.join(WORK, "shard_blocks_seq")
+    t = time.perf_counter()
+    run_pipeline([fq], PipelineConfig(mode=0, rebuild=True), out_base=seq_base,
+                 blocks=SHARD_RANKS, device="cuda")
+    route_s = time.perf_counter() - t
+    log = _read(seq_base + ".log").decode()
+    route = "rank-parallel" if "rank-parallel" in log else "sequential"
+    t = time.perf_counter()
+    got, stats = block_smooth_fastq(read_fastq(fq), cfg, SHARD_RANKS, device="cuda", backend="gloo",
+                                    work_dir=WORK)
+    seconds = time.perf_counter() - t
+    if format_fastq(got, headers=None) != _read(seq_base + ".fq"):
+        fail(f"block_smooth_fastq on {SHARD_RANKS} gloo ranks differs from the pipeline's "
+             f"{route} block route")
+    res["blocks"] = {"reads": b.num_reads, "blocks": SHARD_RANKS, "seconds": seconds,
+                     "pipeline_route": route, "pipeline_s": route_s, "stats": stats,
+                     "byte_equal_to_pipeline": True}
+    res["staged_bytes"] = sum(res[k]["staged_bytes"] for k in cases)
+    phase("sharded_ranks", backend="gloo", ranks=SHARD_RANKS, device="cuda:0 (shared)", **res)
+    return res
+
+
+def _cards_rank(comm, seqs, quals, lengths, runs: int):
+    """One NCCL rank of phase 9 (c), one card each: smooth_fastq_sharded on
+    the group (every rank passes the whole batch), a warm-up and then `runs`
+    timed calls; rank 0 also returns the reads."""
+    import torch
+
+    from bfqzip_tpu_torch import SmoothConfig
+    from bfqzip_tpu_torch.io import ReadBatch
+    from bfqzip_tpu_torch.ops import cuda_scan
+    from bfqzip_tpu_torch.parallel import smooth_fastq_sharded
+
+    batch = ReadBatch(seqs=seqs.numpy(), quals=quals.numpy(), lengths=lengths.numpy())
+    cfg = SmoothConfig()
+    smooth_fastq_sharded(batch, cfg, comm=comm)  # warm-up: NCCL sets up its connections
+    timed = []
+    for _ in range(runs):
+        comm.psum(torch.zeros((), device=comm.device))  # the ranks start together
+        torch.cuda.synchronize()
+        cuda_scan.launches = 0
+        reports = []
+        t = time.perf_counter()
+        out, stats = smooth_fastq_sharded(batch, cfg, comm=comm, reports=reports)
+        torch.cuda.synchronize()
+        timed.append({"seconds": time.perf_counter() - t, "launches": cuda_scan.launches,
+                      "report": reports[0]})
+    reads = (out.seqs, out.quals, out.lengths) if comm.rank == 0 else None
+    return reads, stats, timed
+
+
+def sharded_cards(batch, count: int) -> dict:
+    """Phase 9 (c): NCCL with one rank per card, d = min(4, cards), at
+    `count` reads: the ranks are started once, run a warm-up and 3 timed
+    calls, and must match smooth_fastq byte for byte with equal stats.  The
+    first call's seconds through the spawning wrapper are kept too.  On a
+    one-card machine it does not run, and says why."""
+    import numpy as np
+    import torch
+
+    from bfqzip_tpu_torch import SmoothConfig
+    from bfqzip_tpu_torch.engine import smooth_fastq
+    from bfqzip_tpu_torch.io import ReadBatch
+    from bfqzip_tpu_torch.parallel import mesh, smooth_fastq_sharded
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        res = {"ran": False, "reason": f"torch.cuda.device_count() is {cards}: NCCL takes one "
+                                       "card per rank, and a group of one is phase 9 (a)"}
+        phase("sharded_cards", **res)
+        return res
+    d = min(4, cards)
+    cfg = SmoothConfig()
+    sub = _prefix(batch, count)
+    want, want_stats = smooth_fastq(sub, cfg, device="cuda")
+    # through the spawning wrapper: the ranks' start and NCCL's set-up included
+    reports = []
+    t = time.perf_counter()
+    got, stats = smooth_fastq_sharded(sub, cfg, shards=d, device="cuda", work_dir=WORK,
+                                      reports=reports)
+    cold_s = time.perf_counter() - t
+    if not _same_reads(got, want) or stats != want_stats:
+        fail(f"sharded over {d} NCCL cards differs from smooth_fastq")
+    shared = [torch.from_numpy(np.ascontiguousarray(a)).share_memory_()
+              for a in (sub.seqs, sub.quals, sub.lengths)]
+    ranks = mesh.spawn(_cards_rank, d, "cuda", WORK, args=(*shared, 3))
+    reads, stats, _ = ranks[0]
+    got = ReadBatch(seqs=reads[0], quals=reads[1], lengths=reads[2])
+    if not _same_reads(got, want) or stats != want_stats:
+        fail(f"sharded over {d} NCCL cards (warm group) differs from smooth_fastq")
+    run_s = [max(r[2][i]["seconds"] for r in ranks) for i in range(3)]
+    last = [r[2][-1]["report"] for r in ranks]
+    res = {"ran": True, "backend": "nccl", "ranks": d, "reads": count,
+           "cold_call_s": cold_s, "cold_stages": _rank_stages(reports),
+           "run_s": run_s, "best_s": min(run_s), "median_s": sorted(run_s)[1],
+           "bases_per_s": count * REAL_LEN / min(run_s), "stages": _rank_stages(last),
+           "peak_bytes_per_card": max(v for r in last for k, v in r.items()
+                                      if k.endswith("_peak_bytes")),
+           "collective_bytes": sum(r["sent_bytes"] for r in last),
+           "launches_per_rank": [r[2][-1]["launches"] for r in ranks],
+           "attempts": last[0]["attempts"], "byte_equal_to_smooth_fastq": True}
+    phase("sharded_cards", **res)
+    return res
+
+
+def mesh_refused() -> dict:
+    """Phase 9 (d): --mesh with one rank more than the cards exits non-zero
+    and names both counts."""
+    import contextlib
+    import io
+
+    import torch
+
+    from bfqzip_tpu_torch import cli
+
+    cards = torch.cuda.device_count()
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main([os.path.join(WORK, "shard_blocks.fastq"), "-o", os.path.join(WORK, "mesh_refused"),
+                       "-0", "--mesh", str(cards + 1)])
+    msg = err.getvalue().strip()
+    if rc == 0 or f"{cards + 1} CUDA devices" not in msg or f"device_count() is {cards}" not in msg:
+        fail(f"--mesh {cards + 1} on {cards} card(s) exited {rc}: {msg!r}")
+    res = {"mesh": cards + 1, "cards": cards, "rc": rc, "stderr": msg}
+    phase("mesh_refused", **res)
+    return res
+
+
 def native_make():
     """Start `make -B -C native` (the host codec library) in the background.
     -B rebuilds a copy left in the tree: it is built with -march=native and
@@ -999,11 +1343,29 @@ def native_make():
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
 
+    if argv not in ([], ["sharded"], ["cards"]):
+        fail(f"unknown arguments {argv}: none runs every phase, 'sharded' phases 1, 2 and 9, "
+             "'cards' phases 1, 2 and 9 (c)")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs an NVIDIA GPU")
+    if argv:
+        environment()
+        build()
+        batch, _ = real_batch()
+        if argv == ["cards"]:
+            if torch.cuda.device_count() < 2:
+                fail("'cards' needs two or more cards")
+            sharded_cards(batch, REAL_READS)
+        else:
+            world1 = sharded_world1(batch)
+            sharded_ranks(batch)
+            sharded_cards(batch, world1["reads"])
+            mesh_refused()
+        print(f"phases 1, 2 and 9{' (c)' if argv == ['cards'] else ''} only: no result line")
+        return 0
     t_make = time.time()
     make = native_make()
     try:
@@ -1020,9 +1382,13 @@ def main() -> int:
     batch, t_data = real_batch()
     real = real_size(batch, t_data)
     cli = cli_path(batch, made)
-    del batch
     long = long_reads()
     ext = external_path(cli)
+    world1 = sharded_world1(batch)
+    ranks = sharded_ranks(batch)
+    sharded_cards(batch, world1["reads"])
+    mesh_refused()
+    del batch
     for package in ("jax", "bfqzip_tpu"):
         if package in sys.modules:
             fail(f"{package} was imported")
@@ -1031,7 +1397,12 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": "seg_scan", "route": "cuda", "source": "bfqzip_tpu_torch/csrc/seg_scan.cu",
         "replaces": "bfqzip_tpu/ops/pallas_scan.py:89",
-        "launches": real["launches"] + cli["launches"] + long["launches"] + ext["launches"],
+        "launches": (real["launches"] + cli["launches"] + long["launches"] + ext["launches"]
+                     + sum(world1["launches_per_call"])),
+        # seg_scan launches of one sharded call: world 1 in this process, and
+        # each of the gloo ranks sharing the card (flat body)
+        "sharded_launches_per_call": {"world1": world1["launches_per_call"],
+                                      f"gloo{SHARD_RANKS}_per_rank": ranks["flat"]["launches_per_rank"]},
         "max_abs_err": max_abs,
         # the five launches of one phase-5 smooth at the main path's shapes
         "ms": ms, "plain_ms": sum(r["plain_ms"] for r in scans),
@@ -1049,4 +1420,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,7 +1,8 @@
 """The port's CLI: compress, restore and decompress run end to end in a
 process where jax cannot be imported; --ext-mem writes the JAX CLI's files;
-the parser's exit codes; the refused --mesh; and no silent CPU run when CUDA
-is asked for without a card."""
+the parser's exit codes; --mesh 4 over gloo ranks, byte-equal to the JAX
+CLI's mesh, and refused on CUDA above the card count; and no silent CPU run
+when CUDA is asked for without a card."""
 
 import os
 import shutil
@@ -14,6 +15,7 @@ import torch
 from bfqzip_tpu import cli as jax_cli
 from bfqzip_tpu_torch.utils import native
 from bfqzip_tpu_torch import cli
+from bfqzip_tpu_torch.parallel import mesh
 
 from conftest import golden_path
 from test_torch_pipeline import assert_same_outputs
@@ -92,11 +94,27 @@ def test_bad_arguments_exit_2(tmp_path, capsys):
     assert "bfqzip_tpu_torch" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "4"]])
-def test_unported_flags_exit_2(tmp_path, capsys, flags):
+def test_mesh_flag_byte_equal_to_jax(tmp_path, monkeypatch):
+    """--mesh 4 --cpu runs ONE global EBWT over 4 gloo ranks and writes the
+    JAX CLI's files (--mesh 4 on its 4-device mesh)."""
+    monkeypatch.setattr(mesh, "JOIN_TIMEOUT_S", 120)  # a hang fails the test
+    src = str(tmp_path / "reads.fastq")
+    shutil.copyfile(golden_path("example.in.fastq"), src)
+    assert jax_cli.main([src, "-o", str(tmp_path / "jax"), "--m3", "--mesh", "4"]) == 0
+    assert cli.main([src, "-o", str(tmp_path / "torch"), "--m3", "--mesh", "4", "--cpu"]) == 0
+    assert_same_outputs(str(tmp_path / "torch"), str(tmp_path / "jax"))
+    assert "sequence-sharded over 4 ranks" in open(tmp_path / "torch.log").read()
+
+
+def test_mesh_above_card_count_exits_nonzero(tmp_path, capsys, monkeypatch):
+    """--mesh 2 on CUDA with one card refuses, naming both counts, before
+    any file is written: two ranks never share a card silently."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     src = golden_path("example.in.fastq")
-    assert cli.main([src, "-o", str(tmp_path / "o"), "--cpu", *flags]) == 2
-    assert "not ported" in capsys.readouterr().err
+    assert cli.main([src, "-o", str(tmp_path / "o"), "--m3", "--mesh", "2"]) != 0
+    err = capsys.readouterr().err
+    assert "2 ranks need 2 CUDA devices" in err and "device_count() is 1" in err
     assert os.listdir(tmp_path) == []
 
 

@@ -1,10 +1,12 @@
 """The port's jax-free host codecs against the JAX package: the numpy rANS
 coder is byte-equal to the lax.scan coder, each package decodes the other's
 containers, the native-backed choices and the BQZH header codec give the same
-bytes, and old BQZE archives decode through the port's LF walk."""
+bytes, and old BQZE archives decode through the port's LF walk, on the card
+unless the CPU is asked for."""
 
 import numpy as np
 import pytest
+import torch
 
 from bfqzip_tpu.io.fastq import read_fastq
 from bfqzip_tpu.models import dna_ebwt as jax_dna_ebwt
@@ -14,6 +16,7 @@ from bfqzip_tpu.ops import rans as jax_rans
 from bfqzip_tpu_torch.utils import native
 from bfqzip_tpu_torch.models import dna_ebwt, headers
 from bfqzip_tpu_torch.ops import rans
+from bfqzip_tpu_torch.pipeline import decompress_stream
 
 from conftest import golden_path
 from torch_cpu import one_torch_thread  # noqa: F401  (autouse)
@@ -115,6 +118,22 @@ def test_decode_dna_stream_of_jax_container():
     data = b"\n".join(lines[1::4]) + b"\n"
     blob = jax_dna_ebwt.encode_dna_stream(data)
     assert blob[:4] == b"BQZE"
-    assert dna_ebwt.decode_dna_stream(blob) == data
+    assert dna_ebwt.decode_dna_stream(blob, device="cpu") == data
     with pytest.raises(ValueError, match="EBWT container"):
-        dna_ebwt.decode_dna_stream(b"BQZR" + blob[4:])
+        dna_ebwt.decode_dna_stream(b"BQZR" + blob[4:], device="cpu")
+
+
+def test_bqze_decodes_on_the_card_unless_asked_for_the_cpu(tmp_path, monkeypatch):
+    """With no device the BQZE decoder and decompress_stream invert on
+    `cuda`, so without a card they raise; device="cpu" decodes."""
+    lines = open(golden_path("example.m2b0.fq"), "rb").read().split(b"\n")
+    data = b"\n".join(lines[1::4]) + b"\n"
+    path = tmp_path / "dna.rans"
+    path.write_bytes(jax_dna_ebwt.encode_dna_stream(data))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        dna_ebwt.decode_dna_stream(path.read_bytes())
+    with pytest.raises(RuntimeError, match="cuda"):
+        decompress_stream(str(path), str(tmp_path / "out"))
+    assert not (tmp_path / "out").exists()
+    assert open(decompress_stream(str(path), str(tmp_path / "out"), device="cpu"), "rb").read() == data

@@ -3,7 +3,7 @@ output file except the .log is byte-equal for modes 1, 2, 3 and binning;
 the stage-1 artifact cache (hit, rebuild, invalidation, and artifacts shared
 in both directions); restore / decompress round trips; the -D dump; the
 out-of-core route; the 6 long-read goldens through the artifacts; and the
-refused mesh route."""
+sequence-sharded mesh route over 4 gloo ranks."""
 
 import os
 import shutil
@@ -14,6 +14,7 @@ from bfqzip_tpu.config import PipelineConfig, SmoothConfig
 from bfqzip_tpu_torch.utils import native
 from bfqzip_tpu.pipeline import restore_fastq as jax_restore_fastq
 from bfqzip_tpu.pipeline import run_pipeline as jax_run_pipeline
+from bfqzip_tpu_torch.parallel import mesh
 from bfqzip_tpu_torch.pipeline import decompress_stream, restore_fastq, run_pipeline
 
 from conftest import golden_path
@@ -164,12 +165,19 @@ def test_original_copies_input(tmp_path):
     assert open(tmp_path / "torch.fq", "rb").read() == open(src, "rb").read()
 
 
-@pytest.mark.parametrize("kw, item", [({"mesh_shards": 4}, "item 12")])
-def test_unported_routes_raise(tmp_path, kw, item):
-    src = golden_path("example.in.fastq")
-    with pytest.raises(NotImplementedError, match=item):
-        run_pipeline([src], PipelineConfig(mode=2), out_base=str(tmp_path / "o"), device="cpu", **kw)
-    assert not os.path.exists(tmp_path / "o.fq")
+def test_mesh_route_byte_equal_to_jax(tmp_path, monkeypatch):
+    """mesh_shards=4 on the CPU: steps 1-3 on ONE global EBWT over 4 gloo
+    ranks; every file equals the JAX pipeline's on its 4-device mesh."""
+    monkeypatch.setattr(mesh, "JOIN_TIMEOUT_S", 120)  # a hang fails the test
+    src = str(tmp_path / "reads.fastq")
+    shutil.copyfile(golden_path("example.in.fastq"), src)
+    cfg = PipelineConfig(mode=2)
+    jres = jax_run_pipeline([src], cfg, out_base=str(tmp_path / "jax"), mesh_shards=4)
+    tres = run_pipeline([src], cfg, out_base=str(tmp_path / "torch"), device="cpu", mesh_shards=4)
+    assert_same_outputs(str(tmp_path / "torch"), str(tmp_path / "jax"))
+    assert tres.stats == jres.stats and tres.stats["num_clust"] > 0
+    assert "steps1-3: sequence-sharded over 4 ranks" in open(tmp_path / "torch.log").read()
+    assert len(tres.report["sharded"]) == 4
 
 
 @pytest.mark.skipif(not native.ext_merge_available(), reason="native library not built")

@@ -1,6 +1,7 @@
 """The port's block mode and paired mode against the JAX pipeline, byte for
-byte: equal blocks (the JAX mesh route on the 8 virtual CPU devices), uneven
-blocks (the JAX sequential route, whose dummy reads the port adds too),
+byte: equal blocks (the JAX mesh route on the 8 virtual CPU devices, the
+port's rank-parallel route on gloo ranks), uneven blocks (the JAX
+sequential route, whose dummy reads the port adds too),
 paired blocks, paired reorder 1/2 with mates kept aligned, and paired
 restore round trips."""
 
@@ -14,11 +15,18 @@ from bfqzip_tpu.config import PipelineConfig
 from bfqzip_tpu.io.fastq import ReadBatch, format_fastq, read_fastq
 from bfqzip_tpu.pipeline import restore_fastq as jax_restore_fastq
 from bfqzip_tpu.pipeline import run_pipeline as jax_run_pipeline
+from bfqzip_tpu_torch.parallel import mesh
 from bfqzip_tpu_torch.pipeline import _block_permutation, restore_fastq, run_pipeline
 
 from conftest import golden_path
 from test_torch_pipeline import assert_same_outputs
 from torch_cpu import one_torch_thread  # noqa: F401  (autouse)
+
+
+@pytest.fixture(autouse=True)
+def ranks_time_out(monkeypatch):
+    """Ranks of the rank-parallel block route that hang fail the test."""
+    monkeypatch.setattr(mesh, "JOIN_TIMEOUT_S", 120)
 
 
 def _both(inputs, cfg, d, **kw):
@@ -48,6 +56,10 @@ def test_blocks_byte_equal_to_jax(tmp_path, blocks, mode):
     _both([src], PipelineConfig(mode=mode), tmp_path, blocks=blocks)
     jax_route = "mesh-parallel" if blocks == 4 else "block 3/3"
     assert jax_route in open(tmp_path / "jax.log").read()
+    # equal blocks take the rank-parallel route where there is a core per rank
+    parallel = blocks == 4 and os.cpu_count() >= 4
+    torch_route = "rank-parallel" if parallel else f"block {blocks}/{blocks}"
+    assert torch_route in open(tmp_path / "torch.log").read()
     fq = open(tmp_path / "torch.fq", "rb").read()
     assert fq.count(b"\n") == 400  # every read survives, dummies dropped
 
