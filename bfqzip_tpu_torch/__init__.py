@@ -7,7 +7,7 @@ segmented scan as a hand-written CUDA kernel (csrc/seg_scan.cu).  The JAX
 package bfqzip_tpu stays the reference; this package imports torch and never
 jax, and nothing of bfqzip_tpu: it carries its own copies of the host
 modules it needs (alphabet, config, io.fastq / io.spill, models.context,
-utils.native / reorder / debug / logging, and the CLI parser).
+utils.native / reorder / debug / logging / checkfastq, and the CLI parser).
 
   bfqzip_tpu_torch.cli       python -m bfqzip_tpu_torch (same flags as bfqzip_tpu)
   bfqzip_tpu_torch.pipeline  steps 1-5 with the artifact cache, restore, decompress
@@ -19,7 +19,9 @@ utils.native / reorder / debug / logging, and the CLI parser).
   bfqzip_tpu_torch.convert   numpy <-> tensor state (EBWT, read batches)
   bfqzip_tpu_torch.io        FASTQ parse / format, spill-backed arrays
   bfqzip_tpu_torch.utils     nvcc build of csrc/*.cu (ctypes), native host codecs,
-                             StepLogger, reorder, debug dumps
+                             StepLogger, profiling (phase timers, torch.profiler
+                             timelines), the variant-preservation proxy,
+                             checkfastq, reorder, debug dumps
 
 No device is chosen at import: callers pass one.
 """

@@ -14,6 +14,9 @@ Launch one process per card, e.g. with torchrun (env:// rendezvous):
     multihost.initialize()  # or initialize("tcp://host:port", world_size=W, rank=r)
     comm = multihost.global_comm()
     out_local, stats = multihost.smooth_fastq_sharded_multihost(local_batch, cfg, comm)
+
+The group is NCCL unless the caller names another backend: with no card,
+initialize() raises.  CPU ranks ask for it: initialize(backend="gloo").
 """
 
 from __future__ import annotations
@@ -26,25 +29,28 @@ import torch.distributed as dist
 
 from bfqzip_tpu_torch.config import SmoothConfig
 from bfqzip_tpu_torch.convert import batch_to_tensors
+from bfqzip_tpu_torch.engine import resolve_device
 from bfqzip_tpu_torch.io.fastq import ReadBatch
 from bfqzip_tpu_torch.parallel.comm import Comm
 from bfqzip_tpu_torch.parallel.global_pipeline import smooth_rank
 
 
 def initialize(init_method: Optional[str] = None, world_size: Optional[int] = None,
-               rank: Optional[int] = None, backend: Optional[str] = None) -> None:
+               rank: Optional[int] = None, backend: str = "nccl") -> None:
     """torch.distributed.init_process_group passthrough; with no arguments
-    it reads torchrun's environment (env://).  The backend defaults to nccl
-    when CUDA is available, gloo otherwise."""
-    if backend is None:
-        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    it reads torchrun's environment (env://).  The backend is nccl unless
+    asked otherwise, and nccl without a card raises: the CPU takes
+    backend="gloo", never by default."""
+    if backend == "nccl":
+        resolve_device("cuda")
     kw = {} if world_size is None else {"world_size": world_size, "rank": rank}
     dist.init_process_group(backend, init_method=init_method, **kw)
 
 
 def global_comm(device=None) -> Comm:
     """The world group: one rank per process, an NCCL rank on card
-    (rank mod the cards of its host)."""
+    (rank mod the cards of its host), a gloo rank (which was asked for) on
+    the CPU."""
     if device is None:
         if dist.get_backend() == "nccl":
             device = torch.device("cuda", dist.get_rank() % torch.cuda.device_count())

@@ -2,12 +2,11 @@
 
 The same contract and log format as bfqzip_tpu/utils/logging.py (the
 reference's BASENAME.log: command lines, wall-clock per step, peak heap per
-phase), with device memory read from torch.  Each step records its wall
-seconds, the host RSS high-water delta across it, and, for a CUDA device,
-`bytes_in_use` (torch.cuda.memory_allocated), `peak_bytes_in_use`
-(torch.cuda.max_memory_allocated, reset at the start of each step, so it is
-that step's peak) and `bytes_limit` (the card's total memory); for the CPU
-it records no device memory.
+phase), with device memory read through profiling.device_memory_stats.
+Each step records its wall seconds, the host RSS high-water delta across
+it, and, for a CUDA device, `bytes_in_use`, `peak_bytes_in_use` (reset at
+the start of each step, so it is that step's peak) and `bytes_limit`; for
+the CPU it records no device memory.
 """
 
 from __future__ import annotations
@@ -21,6 +20,8 @@ from typing import List
 
 import torch
 
+from bfqzip_tpu_torch.utils.profiling import device_memory_stats
+
 
 def _rss_kb() -> int:
     # ru_maxrss is KB on Linux; a high-water mark, so per-step deltas show
@@ -29,14 +30,14 @@ def _rss_kb() -> int:
 
 
 class StepLogger:
-    def __init__(self, path: str, device=None):
+    def __init__(self, path: str, device):
         self.path = path
         self.f = open(path, "a")
         self.phases: List[dict] = []
-        self.device = torch.device(device) if device is not None else None
+        self.device = torch.device(device)
 
     def _cuda(self) -> bool:
-        return self.device is not None and self.device.type == "cuda"
+        return self.device.type == "cuda"
 
     def info(self, msg: str) -> None:
         print(msg)
@@ -65,11 +66,9 @@ class StepLogger:
                 "host_rss_delta_mb": round((_rss_kb() - rss0) / 1024.0, 2),
                 "host_rss_peak_mb": round(_rss_kb() / 1024.0, 2),
             }
+            rec.update(device_memory_stats(self.device))
             mem = f"  host_rss_delta={rec['host_rss_delta_mb']:.1f}MB"
-            if self._cuda():
-                rec["bytes_in_use"] = torch.cuda.memory_allocated(self.device)
-                rec["peak_bytes_in_use"] = torch.cuda.max_memory_allocated(self.device)
-                rec["bytes_limit"] = torch.cuda.get_device_properties(self.device).total_memory
+            if "peak_bytes_in_use" in rec:
                 mem += (
                     f"  dev_in_use={rec['bytes_in_use']/2**20:.1f}MB"
                     f"  dev_peak={rec['peak_bytes_in_use']/2**20:.1f}MB"

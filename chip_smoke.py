@@ -71,6 +71,21 @@ Phases, each printed on its own line; the first failure exits non-zero:
                   rank per card where there are >= 2 cards (else a line says
                   why not); (d) --mesh with one rank more than the cards
                   exits non-zero naming both counts
+ 10. variant_proxy  utils/variant_proxy.run_proxy on the card: 2M x 101 bp
+                  from a 6 Mb diploid genome with 2,500 planted
+                  heterozygous SNPs (~34x, phase 5's 204M positions); the
+                  device pileup equal to np.add.at's, the smoothed reads and
+                  stats equal to a rerun with the plain scans on the card,
+                  5 seg_scan launches, bases modified; then precision and
+                  recall before and after, the largest alt-allele support
+                  drop, non-SNP noise before and after and "preserved"
+                  (the JAX test's checks, reported, not gated), step
+                  seconds, peak device bytes
+ 11. profile      tools/profile_stages_torch.py on phase 5's reads: build /
+                  smooth / invert ms (best of 3), then one smooth_step
+                  under torch.profiler: top 10 device kernels, seg_scan's
+                  5 launches (gated), device-busy ms and the idle share of
+                  the call's wall span
 Then a JSON line describing each kernel (its times are the sums over phase
 5's launches), the card's name and power limit, and last the result line
 {"ok": true, "device": {...}}.  Imports nothing of jax or of the JAX package
@@ -120,6 +135,9 @@ SHARD_RANKS = 4  # (b) ranks sharing the one card through a gloo group
 SHARD_FLAT_READS = 200_000  # (b) flat body, block mode
 SHARD_LONG_READS, SHARD_LONG_LEN = 30_000, 150  # (b) wp = 151 > 120: the doubling body
 SHARD_RETRY_READS, SHARD_RETRY_FACTOR = 50_000, 0.5  # (b) a capacity that overflows first
+# phase 10, the variant-preservation proxy: phase 5's 204M positions at the
+# JAX tests' ~34x coverage, one planted SNP per 2.4 kb
+PROXY_READS, PROXY_LEN, PROXY_GENOME, PROXY_SNPS = 2_000_000, 101, 6_000_000, 2_500
 
 
 def phase(name: str, **fields) -> None:
@@ -1335,6 +1353,162 @@ def mesh_refused() -> dict:
     return res
 
 
+class _PlainScans:
+    """While active, every call of the kernel's wrapper runs the plain
+    version on the card instead (and counts no launch)."""
+
+    def __init__(self):
+        from bfqzip_tpu_torch.ops import cuda_scan
+
+        self.cuda_scan, self.kernel, self.plain = cuda_scan, cuda_scan.seg_scan, plain_ops()
+
+    def __enter__(self):
+        self.cuda_scan.seg_scan = lambda x, f, op, init, reverse=False: self.plain._scan(
+            x, f, op, init, reverse)
+        return self
+
+    def __exit__(self, *exc):
+        self.cuda_scan.seg_scan = self.kernel
+        return False
+
+
+def _pileup_add_at(batch, starts, strands, genome_len: int):
+    """The plain pileup on the host: np.add.at over the valid lanes, the
+    JAX package's method, independent of the port's device bincount."""
+    import numpy as np
+
+    code2base = np.full(6, -1, np.int8)
+    code2base[[1, 2, 3, 5]] = [0, 1, 2, 3]  # alphabet codes A C G T
+    comp_of = np.array([3, 2, 1, 0], np.int8)
+    lens = batch.lengths.astype(np.int64)[:, None]
+    offs = np.arange(batch.seqs.shape[1])[None, :]
+    gpos = np.where(strands[:, None], starts[:, None] + lens - 1 - offs, starts[:, None] + offs)
+    bases = code2base[batch.seqs]
+    bases = np.where(strands[:, None], np.where(bases >= 0, comp_of[np.clip(bases, 0, 3)], -1), bases)
+    valid = (bases >= 0) & (offs < lens)
+    counts = np.zeros((genome_len, 4), np.int64)
+    np.add.at(counts, (gpos[valid], bases[valid]), 1)
+    return counts
+
+
+def variant_proxy_phase() -> dict:
+    """Phase 10: utils/variant_proxy.run_proxy on the card at phase 5's
+    positions (2M x 101 bp over a 6 Mb diploid genome, 2,500 planted SNPs),
+    each of its steps timed by a wrapper; the gates, then the preservation
+    checks of tests/test_variant_proxy.py, reported and not gated."""
+    import numpy as np
+    import torch
+
+    from bfqzip_tpu_torch import SmoothConfig
+    from bfqzip_tpu_torch.engine import smooth_fastq
+    from bfqzip_tpu_torch.ops import cuda_scan
+    from bfqzip_tpu_torch.utils import variant_proxy as vp
+
+    steps, outs, originals = {}, {}, {}
+
+    def timed(name):
+        fn = originals[name] = getattr(vp, name)
+
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            steps.setdefault(name, []).append(time.perf_counter() - t0)
+            outs.setdefault(name, []).append(out)
+            return out
+
+        setattr(vp, name, run)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for name in ("simulate_diploid", "pileup_counts", "smooth_fastq", "call_snps"):
+        timed(name)
+    cuda_scan.launches = 0
+    t = time.perf_counter()
+    try:
+        res = vp.run_proxy(PROXY_READS, PROXY_LEN, PROXY_GENOME, PROXY_SNPS, seed=0, device="cuda")
+    finally:
+        for name, fn in originals.items():
+            setattr(vp, name, fn)
+    total_s = time.perf_counter() - t
+    launches = cuda_scan.launches
+    peak = torch.cuda.max_memory_allocated()
+    sim = outs["simulate_diploid"][0]
+    counts_o, counts_s = outs["pileup_counts"]
+    smoothed, stats = outs["smooth_fastq"][0]
+    del outs
+
+    if launches != 5:
+        fail(f"seg_scan launched {launches} times in run_proxy, expected 5 (one smooth)")
+    if res["bases_modified"] <= 0:
+        fail("the proxy's smoothing modified no base")
+    changed = int((smoothed.seqs != sim.batch.seqs).sum())
+    if changed != stats["modified"]:
+        fail(f"smoothing changed {changed} bases for modified={stats['modified']}")
+    t = time.perf_counter()
+    if not np.array_equal(counts_o, _pileup_add_at(sim.batch, sim.starts, sim.strands, PROXY_GENOME)):
+        fail("the device pileup differs from np.add.at's on the original reads")
+    numpy_pileup_s = time.perf_counter() - t
+    t = time.perf_counter()
+    with _PlainScans():
+        plain, plain_stats = smooth_fastq(sim.batch, SmoothConfig(), device="cuda")
+    plain_s = time.perf_counter() - t
+    if not (all(np.array_equal(getattr(plain, f), getattr(smoothed, f))
+                for f in ("seqs", "quals", "lengths")) and plain_stats == stats):
+        fail("run_proxy's smoothed reads differ from a rerun with the plain scans on the card")
+    del plain
+
+    o, s = res["original"], res["smoothed"]
+    alt_o, alt_s = res["alt_support_orig"], res["alt_support_smooth"]
+    drop = alt_o - alt_s
+    frac = drop / np.maximum(alt_o, 1)
+    ref = sim.genome.astype(np.int64)
+    idx = np.arange(PROXY_GENOME)
+    non_snp = np.ones(PROXY_GENOME, bool)
+    non_snp[sim.snp_pos] = False
+    noise = [int((c.sum(1) - c[idx, ref])[non_snp].sum()) for c in (counts_o, counts_s)]
+    out = {
+        "reads": PROXY_READS, "read_len": PROXY_LEN, "genome_len": PROXY_GENOME,
+        "n_snps": PROXY_SNPS, "coverage": PROXY_READS * PROXY_LEN / PROXY_GENOME,
+        "original": o, "smoothed": s, "bases_modified": int(res["bases_modified"]),
+        "alt_support_drop_max": int(drop.max(initial=0)),
+        "alt_support_drop_frac_max": float(frac.max(initial=0.0)),
+        "alt_support_mean": [float(alt_o.mean()), float(alt_s.mean())],
+        "noise_non_snp": {"original": noise[0], "smoothed": noise[1]},
+        "preserved": bool(s["recall"] >= o["recall"] and s["precision"] >= o["precision"]
+                          and frac.max(initial=0.0) <= 0.1),
+        "launches": launches, "run_proxy_s": total_s,
+        "step_s": {"simulate": steps["simulate_diploid"][0], "pileup": steps["pileup_counts"],
+                   "smooth_fastq": steps["smooth_fastq"][0], "call_snps": steps["call_snps"]},
+        "numpy_pileup_s": numpy_pileup_s, "plain_rerun_s": plain_s, "peak_bytes": peak,
+        "pileup_equal_to_numpy": True, "kernel_vs_plain_reads": True, "stats": stats,
+    }
+    phase("variant_proxy", **out)
+    return out
+
+
+def profile_phase(batch) -> dict:
+    """Phase 11: tools/profile_stages_torch.py's profile of phase 5's reads:
+    stage times, then one traced smooth_step with its device timeline."""
+    from bfqzip_tpu_torch.ops import cuda_scan
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from profile_stages_torch import profile_batch
+
+    cuda_scan.launches = 0
+    res = profile_batch(batch, "cuda", os.path.join(WORK, "profile"))
+    launches = cuda_scan.launches
+    if res["seg_scan_launches"] != 5 or res["seg_scan_kernels"] != 5:
+        fail(f"the traced smooth_step launched seg_scan {res['seg_scan_launches']} times and the "
+             f"trace holds {res['seg_scan_kernels']} of its kernels, expected 5 and 5")
+    if res["idle_share"] is None:
+        fail("the trace holds no device events: no idle share")
+    out = {"launches": launches, **res}
+    phase("profile", **out)
+    return out
+
+
 def native_make():
     """Start `make -B -C native` (the host codec library) in the background.
     -B rebuilds a copy left in the tree: it is built with -march=native and
@@ -1388,6 +1562,8 @@ def main(argv) -> int:
     ranks = sharded_ranks(batch)
     sharded_cards(batch, world1["reads"])
     mesh_refused()
+    proxy = variant_proxy_phase()
+    prof = profile_phase(batch)
     del batch
     for package in ("jax", "bfqzip_tpu"):
         if package in sys.modules:
@@ -1398,7 +1574,7 @@ def main(argv) -> int:
         "name": "seg_scan", "route": "cuda", "source": "bfqzip_tpu_torch/csrc/seg_scan.cu",
         "replaces": "bfqzip_tpu/ops/pallas_scan.py:89",
         "launches": (real["launches"] + cli["launches"] + long["launches"] + ext["launches"]
-                     + sum(world1["launches_per_call"])),
+                     + sum(world1["launches_per_call"]) + proxy["launches"] + prof["launches"]),
         # seg_scan launches of one sharded call: world 1 in this process, and
         # each of the gloo ranks sharing the card (flat body)
         "sharded_launches_per_call": {"world1": world1["launches_per_call"],

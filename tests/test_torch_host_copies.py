@@ -2,7 +2,8 @@
 
 bfqzip_tpu_torch imports nothing of bfqzip_tpu, so it carries its own
 alphabet, config, FASTQ I/O, spill files, reorder, context specs, debug
-dumps and CLI parser.  Each copy is held here against the original on the
+dumps, CLI parser, FASTQ check and the variant proxy's simulator, caller and
+scoring.  Each copy is held here against the original on the
 same inputs: tables equal, the same defaults and validation errors, byte-equal
 FASTQ on every golden input, the same permutations and parser actions.
 """
@@ -22,13 +23,15 @@ from bfqzip_tpu.io import fastq as jax_fastq
 from bfqzip_tpu.io import spill as jax_spill
 from bfqzip_tpu.models import context as jax_context
 from bfqzip_tpu.ref_golden import lcp_bitvectors as jax_lcp_bitvectors
+from bfqzip_tpu.utils import checkfastq as jax_checkfastq
 from bfqzip_tpu.utils import debug as jax_debug
 from bfqzip_tpu.utils import native as jax_native
 from bfqzip_tpu.utils import reorder as jax_reorder
+from bfqzip_tpu.utils import variant_proxy as jax_variant_proxy
 from bfqzip_tpu_torch import alphabet, cli, config
 from bfqzip_tpu_torch.io import fastq, spill
 from bfqzip_tpu_torch.models import context
-from bfqzip_tpu_torch.utils import debug, native, reorder
+from bfqzip_tpu_torch.utils import checkfastq, debug, native, reorder, variant_proxy
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 INPUTS = sorted(os.path.basename(p) for p in glob.glob(os.path.join(GOLDEN, "*.in.fastq")))
@@ -238,3 +241,78 @@ def test_cli_parser_has_no_extra_action():
                                   ["in.fq", "--ext-mem", "--mem", "512", "-0", "--cpu"]])
 def test_cli_parses_alike(argv):
     assert vars(cli.build_parser().parse_args(argv)) == vars(jax_cli.build_parser().parse_args(argv))
+
+
+# ---- FASTQ check ----
+
+@pytest.mark.parametrize("path", ["a.fastq", "a.fq", "dir.fq/a.txt", "a.FASTQ", "fastq", "a.fq.gz", ""])
+def test_check_extension(path):
+    assert checkfastq.check_extension(path) == jax_checkfastq.check_extension(path)
+
+
+# ---- variant proxy: simulator, pileup, caller, scoring ----
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_simulate_diploid(seed):
+    got = variant_proxy.simulate_diploid(3000, 101, 20_000, 12, seed)
+    want = jax_variant_proxy.simulate_diploid(3000, 101, 20_000, 12, seed)
+    for field in ("genome", "snp_pos", "snp_alt", "starts", "strands", "haps"):
+        g, w = getattr(got, field), getattr(want, field)
+        assert g.dtype == w.dtype and np.array_equal(g, w), field
+    for field in ("seqs", "quals", "lengths"):
+        g, w = getattr(got.batch, field), getattr(want.batch, field)
+        assert g.dtype == w.dtype and np.array_equal(g, w), field
+
+
+def test_simulate_diploid_refuses_dense_snps_alike():
+    with pytest.raises(ValueError) as want:
+        jax_variant_proxy.simulate_diploid(10, 101, 2_000, 20)
+    with pytest.raises(ValueError) as got:
+        variant_proxy.simulate_diploid(10, 101, 2_000, 20)
+    assert str(got.value) == str(want.value)
+
+
+def _ragged_reads(rng, n_reads: int, width: int, glen: int):
+    """Reads of random lengths 1..width with N codes and padding past each
+    length, on random strands."""
+    lengths = rng.integers(1, width + 1, n_reads).astype(np.int32)
+    seqs = rng.choice(np.array([1, 2, 3, 4, 5], np.uint8), size=(n_reads, width),
+                      p=[0.23, 0.23, 0.23, 0.08, 0.23])
+    seqs[np.arange(width)[None, :] >= lengths[:, None]] = 0
+    batch = fastq.ReadBatch(seqs=seqs, quals=np.full((n_reads, width), 40, np.uint8), lengths=lengths)
+    starts = (rng.integers(0, glen - width, n_reads)).astype(np.int64)
+    return batch, starts, rng.random(n_reads) < 0.5
+
+
+@pytest.mark.parametrize("case", ["simulated", "ragged_with_n"])
+def test_pileup_counts(case):
+    if case == "simulated":
+        glen = 20_000
+        sim = jax_variant_proxy.simulate_diploid(3000, 101, glen, 12, seed=4)
+        batch, starts, strands = sim.batch, sim.starts, sim.strands
+    else:
+        glen = 5_000
+        batch, starts, strands = _ragged_reads(np.random.default_rng(5), 2000, 150, glen)
+        assert (batch.seqs == 4).any() and (batch.lengths < 150).any()
+    got = variant_proxy.pileup_counts(batch, starts, strands, glen, device="cpu")
+    want = jax_variant_proxy.pileup_counts(batch, starts, strands, glen)
+    assert got.dtype == want.dtype == np.int64
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kwargs", [{}, {"min_depth": 3, "min_alt": 2, "alt_frac": 0.1}])
+def test_call_snps_and_evaluate(kwargs):
+    rng = np.random.default_rng(6)
+    glen = 5_000
+    counts = rng.poisson(3.0, (glen, 4)).astype(np.int64)
+    genome = rng.integers(0, 4, glen).astype(np.int8)
+    counts[np.arange(glen), genome] += rng.integers(0, 30, glen)
+    got = variant_proxy.call_snps(counts, genome, **kwargs)
+    want = jax_variant_proxy.call_snps(counts, genome, **kwargs)
+    assert got == want and got
+    calls = list(got.items())
+    snp_pos = np.array([p for p, _ in calls[::2]] + [glen - 1], np.int64)
+    snp_alt = np.array([a if i % 4 else (a + 1) % 4 for i, (_, a) in enumerate(calls[::2])] + [0],
+                       np.int8)
+    assert (variant_proxy.evaluate(got, snp_pos, snp_alt)
+            == jax_variant_proxy.evaluate(want, snp_pos, snp_alt))

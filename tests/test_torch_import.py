@@ -65,7 +65,7 @@ def test_every_module_imports_with_jax_blocked():
 
 
 def _sources():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tools", "profile_stages_torch.py")]
     for root, _, names in os.walk(PKG_DIR):
         files += [os.path.join(root, f) for f in names if f.endswith((".py", ".cu"))]
     return files
