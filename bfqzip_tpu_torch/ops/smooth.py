@@ -114,13 +114,21 @@ def smooth(ebwt: EbwtDevice, cfg: SmoothConfig, pre: torch.Tensor | None = None,
     if pre is None:
         _, pre = lf_and_pre(bwt, n, ops)
     word, close_mark, in_cluster, stats = cluster_words(bwt, qs, lcp, n, cfg, pre, ops)
-    # broadcast the close-position word back over the cluster members with a
-    # keep-left segmented scan from the right
-    w = ops.next_marked(torch.where(close_mark, word, 0), close_mark, init=0)
+    w = broadcast_words(word, close_mark, ops)
     bwt_sub, qs_out, modified, qs_smoothed = apply_words(bwt, qs, pre, w, in_cluster, cfg)
-    stats["modified"] = ops.sum(_i32(modified))
-    stats["qs_smoothed"] = ops.sum(_i32(qs_smoothed))
+    stats.update(change_counts(modified, qs_smoothed, ops))
     return SmoothOut(bwt_sub=bwt_sub, qs=qs_out, stats=stats)
+
+
+def broadcast_words(word, close_mark, ops) -> torch.Tensor:
+    """Each cluster's close-position word on every member: a keep-left
+    segmented scan from the right."""
+    return ops.next_marked(torch.where(close_mark, word, 0), close_mark, init=0)
+
+
+def change_counts(modified, qs_smoothed, ops) -> dict:
+    """The `modified` and `qs_smoothed` counters of apply_words' masks."""
+    return {"modified": ops.sum(_i32(modified)), "qs_smoothed": ops.sum(_i32(qs_smoothed))}
 
 
 def cluster_words(bwt, qs, lcp, n, cfg: SmoothConfig, pre, ops) -> tuple:

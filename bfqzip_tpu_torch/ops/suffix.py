@@ -138,31 +138,46 @@ def _lcp(skeys: list, sa: torch.Tensor, lens: torch.Tensor, wp: int, valid: torc
     return lcp
 
 
-def _build_ebwt_flat(seqs: torch.Tensor, quals: torch.Tensor, lengths: torch.Tensor) -> EbwtDevice:
-    n_reads, width = seqs.shape
-    dev = seqs.device
-    wp = width + 1
-    n_pad = n_reads * wp
+def _lens_and_n(lengths: torch.Tensor) -> tuple:
+    """(int64 read lengths, 0-d int32 count of real suffix positions): each
+    read's bases plus its terminator; inert rows (length -1) have none."""
     lens = lengths.to(torch.int64)
-    n = (lens.clamp_min(0).sum() + (lens >= 0).sum()).to(torch.int32)
-    n_words = -(-wp // PACK6)
+    return lens, (lens.clamp_min(0).sum() + (lens >= 0).sum()).to(torch.int32)
 
-    words = _pack_words(seqs, lens, wp, n_words)
+
+def _pack(seqs: torch.Tensor, lens: torch.Tensor) -> list:
+    """The flat build's [n_pad] int64 sort keys: each window's base-6 words,
+    with word 0 of every padding slot set above every real key."""
+    wp = seqs.shape[1] + 1
+    dev = seqs.device
+    words = _pack_words(seqs, lens, wp, -(-wp // PACK6))
     kk = torch.arange(wp, dtype=torch.int64, device=dev)[None, :]
     is_pad = (kk > lens[:, None]).reshape(-1)
     words[0] = torch.where(is_pad, torch.full((), _PAD_KEY, dtype=torch.int64, device=dev), words[0])
+    return words
 
-    # LSD: stable sorts from the last word to the first, starting from
-    # position order; the last pass leaves word 0 sorted
-    sa = torch.arange(n_pad, dtype=torch.int64, device=dev)
+
+def _sort_lsd(words: list) -> tuple:
+    """(sa, sorted keys): LSD stable sorts from the last word to the first,
+    starting from position order; the last pass leaves word 0 sorted."""
+    n_words = len(words)
+    sa = torch.arange(words[0].shape[0], dtype=torch.int64, device=words[0].device)
     for w in range(n_words - 1, -1, -1):
         key = words[w] if w == n_words - 1 else words[w][sa]
         sorted_key, order = torch.sort(key, stable=True)
         sa = sa[order]
-    skeys = [sorted_key] + [words[w][sa] for w in range(1, n_words)]
-    del words
+    return sa, [sorted_key] + [words[w][sa] for w in range(1, n_words)]
 
-    # text symbols (1+code, 0 at terminator/padding) and qualities
+
+def _post(seqs: torch.Tensor, quals: torch.Tensor, lens: torch.Tensor, sa: torch.Tensor,
+          n: torch.Tensor) -> tuple:
+    """(bwt, qs, pre, text, valid) read through the suffix array: the text
+    symbol and quality before each suffix, the symbol two before it, and
+    the text itself (1+code, 0 at terminator/padding slots)."""
+    wp = seqs.shape[1] + 1
+    n_pad = sa.shape[0]
+    dev = seqs.device
+    kk = torch.arange(wp, dtype=torch.int64, device=dev)[None, :]
     zero8 = torch.zeros((), dtype=torch.uint8, device=dev)
     text_codes = torch.where(
         kk < lens[:, None], torch.nn.functional.pad(seqs.to(torch.uint8), (0, 1)) + 1, zero8
@@ -183,6 +198,17 @@ def _build_ebwt_flat(seqs: torch.Tensor, quals: torch.Tensor, lengths: torch.Ten
     valid = torch.arange(n_pad, dtype=torch.int64, device=dev) < n
     bwt = torch.where(valid, bwt, torch.full((), alphabet.SIGMA, dtype=torch.uint8, device=dev))
     qs = torch.where(valid, qs, zero8)
+    return bwt, qs, pre, tflat, valid
+
+
+def _build_ebwt_flat(seqs: torch.Tensor, quals: torch.Tensor, lengths: torch.Tensor) -> EbwtDevice:
+    """The whole-window build in four steps: _pack, _sort_lsd, _post, _lcp."""
+    wp = seqs.shape[1] + 1
+    lens, n = _lens_and_n(lengths)
+    words = _pack(seqs, lens)
+    sa, skeys = _sort_lsd(words)
+    del words
+    bwt, qs, pre, tflat, valid = _post(seqs, quals, lens, sa, n)
     lcp = _lcp(skeys, sa, lens, wp, valid)
     return EbwtDevice(
         bwt=bwt, qs=qs, lcp=lcp, sa=sa.to(torch.int32), text=tflat, n=n, pre=pre
@@ -239,8 +265,7 @@ def _build_ebwt_doubling(seqs: torch.Tensor, quals: torch.Tensor, lengths: torch
     n_pad = n_reads * wp
     if n_pad + n_reads + 1 >= 1 << 33:
         raise ValueError(f"{n_pad} suffix positions overflow the 33-bit round-0 tie-break")
-    lens = lengths.to(torch.int64)
-    n = (lens.clamp_min(0).sum() + (lens >= 0).sum()).to(torch.int32)
+    lens, n = _lens_and_n(lengths)
 
     wcodes = _window_codes(seqs, lens)
     words = [_pack_word(wcodes, wp, w) for w in range(PACK_WORDS)]

@@ -12,7 +12,11 @@ bfq_int.cpp:976-1001) and wall-clock timers around every step
   * torch.profiler traces (CPU activity, plus CUDA on a card), kept for
     key_averages() and written as a Chrome trace, and `device_timeline`,
     which reads a written trace: device-busy time with overlaps merged, the
-    idle share of a marked region, and time per device kernel.
+    idle share of a marked region, and time per device kernel;
+  * `best_ms`, the best of a few timed calls after a warm-up (CUDA events
+    on a card), `device_info`, the card's name, count and power limit
+    that every measurement is printed beside, and `RssSampler`, the peak
+    resident set of a stretch of work.
 """
 
 from __future__ import annotations
@@ -20,8 +24,10 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import subprocess
+import threading
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -42,6 +48,78 @@ def device_memory_stats(device="cuda") -> Dict[str, int]:
         "peak_bytes_in_use": torch.cuda.max_memory_allocated(dev),
         "bytes_limit": torch.cuda.get_device_properties(dev).total_memory,
     }
+
+
+def device_info(device="cuda") -> dict:
+    """The device's type and name, the number of cards, and a card's power
+    limit as `nvidia-smi --query-gpu=name,power.limit` reports it (None on
+    the CPU).  "cuda" without a card raises."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return {"type": dev.type, "name": dev.type, "count": torch.cuda.device_count(),
+                "power_limit": None}
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", str(index)],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    return {"type": "cuda", "name": torch.cuda.get_device_name(dev), "count": torch.cuda.device_count(),
+            "power_limit": smi.rsplit(",", 1)[-1].strip()}
+
+
+class RssSampler:
+    """The process's resident set (/proc/self/statm) sampled every 50 ms on a
+    thread: `start` on entry, `peak` of the samples and the exit reading.
+    getrusage's ru_maxrss is the peak since the process began, and a process
+    started by fork and exec carries its parent's over (on some kernels
+    /proc's VmHWM does too), so a stretch of work, or a tool started by a
+    large parent, reads its own peak only this way.  A spike shorter than
+    the period can be missed."""
+
+    def __init__(self):
+        self.peak = self.start = self.rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    @staticmethod
+    def rss() -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def _run(self):
+        while not self._stop.wait(0.05):
+            self.peak = max(self.peak, self.rss())
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self.rss())
+        return False
+
+
+def best_ms(fn: Callable[[], object], device="cuda", reps: int = 3) -> float:
+    """The fastest of `reps` calls of fn after one warm-up call, in ms: CUDA
+    events around each call on a card, the host clock on the CPU."""
+    dev = resolve_device(device)
+    fn()
+    times = []
+    for _ in range(reps):
+        if dev.type == "cuda":
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        else:
+            t = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t) * 1e3)
+    return min(times)
 
 
 class PhaseProfiler:

@@ -86,6 +86,24 @@ Phases, each printed on its own line; the first failure exits non-zero:
                   under torch.profiler: top 10 device kernels, seg_scan's
                   5 launches (gated), device-busy ms and the idle share of
                   the call's wall span
+ 12. entry points the port's measurement tools and the BQZE codec on the
+                  card: (a) bfqzip_tpu_torch.bench.run on phase 5's reads
+                  (reps 3) and `python -m bfqzip_tpu_torch.bench` at its
+                  default 200K reads in a subprocess, each line naming the
+                  card with 5 seg_scan launches per smooth_step;
+                  (b) tools/profile_build_torch.py on phase 5's reads: pack
+                  / sort / post / LCP ms beside their bounds, their sum
+                  against the whole build, a trace of one build; (c)
+                  tools/profile_smooth_torch.py on phase 5's reads: each
+                  smooth step's ms, seg_scan and kernel launches (5 scans
+                  in the whole smooth, gated); (d)
+                  tools/run_ext10m_torch.py on a FASTQ of phase 5's first
+                  500K reads under --mem-gb 1 with --out, byte-equal to
+                  smooth_fastq and within its budget; (e) phase 6's
+                  smoothed DNA stream (200K reads) through
+                  encode_dna_stream and decode_dna_stream on the card:
+                  the input back, a container equal to the CPU's, MB/s of
+                  each direction; then the phase's seconds
 Then a JSON line describing each kernel (its times are the sums over phase
 5's launches), the card's name and power limit, and last the result line
 {"ok": true, "device": {...}}.  Imports nothing of jax or of the JAX package
@@ -138,6 +156,8 @@ SHARD_RETRY_READS, SHARD_RETRY_FACTOR = 50_000, 0.5  # (b) a capacity that overf
 # phase 10, the variant-preservation proxy: phase 5's 204M positions at the
 # JAX tests' ~34x coverage, one planted SNP per 2.4 kb
 PROXY_READS, PROXY_LEN, PROXY_GENOME, PROXY_SNPS = 2_000_000, 101, 6_000_000, 2_500
+# phase 12: the reads of the FASTQ that tools/run_ext10m_torch.py smooths under 1 GiB
+EXT_TOOL_READS = 500_000
 
 
 def phase(name: str, **fields) -> None:
@@ -791,38 +811,6 @@ def long_reads() -> dict:
     return res
 
 
-class _RssSampler:
-    """The process's resident set sampled every 50 ms on a thread: the peak
-    of a stretch of work, where getrusage gives only the peak since the
-    process began (data generation included)."""
-
-    def __init__(self):
-        import threading
-
-        self.peak = self.start = self._rss()
-        self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._run, daemon=True)
-
-    @staticmethod
-    def _rss() -> int:
-        with open("/proc/self/statm") as f:
-            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
-
-    def _run(self):
-        while not self._stop.wait(0.05):
-            self.peak = max(self.peak, self._rss())
-
-    def __enter__(self):
-        self._thread.start()
-        return self
-
-    def __exit__(self, *exc):
-        self._stop.set()
-        self._thread.join()
-        self.peak = max(self.peak, self._rss())
-        return False
-
-
 def _map_tensors(obj, fn):
     """obj with fn applied to every tensor inside its tuples, lists and dicts."""
     import torch
@@ -905,6 +893,7 @@ def external_path(real) -> dict:
     from bfqzip_tpu_torch import SmoothConfig
     from bfqzip_tpu_torch.external import smooth_fastq_external
     from bfqzip_tpu_torch.ops import cuda_scan
+    from bfqzip_tpu_torch.utils.profiling import RssSampler
 
     cfg = SmoothConfig()
     res = {}
@@ -971,7 +960,7 @@ def external_path(real) -> dict:
     rep = {}
     t = time.perf_counter()
     try:
-        with _RssSampler() as rss, _SegmentCheck(SEG_CHECKED) as seg_c:
+        with RssSampler() as rss, _SegmentCheck(SEG_CHECKED) as seg_c:
             out, stats = smooth_fastq_external(batch, cfg, mem, device="cuda", spill=sp, report=rep)
         seconds = time.perf_counter() - t
         peak_c = torch.cuda.max_memory_allocated() - base_bytes
@@ -1509,6 +1498,137 @@ def profile_phase(batch) -> dict:
     return out
 
 
+def _tool_json(argv, env=None) -> dict:
+    """Run a script in a subprocess from the repository root; the JSON of
+    the last line it printed."""
+    proc = subprocess.run([sys.executable, *argv], cwd=ROOT, capture_output=True, text=True,
+                          timeout=600, env={**os.environ, **(env or {})})
+    if proc.returncode != 0:
+        fail(f"{' '.join(argv)} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _names_card(res, what: str) -> None:
+    import torch
+
+    dev = res["device"]
+    if dev["type"] != "cuda" or dev["name"] != torch.cuda.get_device_name(0) or not dev["power_limit"]:
+        fail(f"{what} ran on {dev}, not on the card")
+
+
+def entry_points(batch) -> dict:
+    """Phase 12: the port's measurement entry points and the BQZE codec on
+    the card: (a) bfqzip_tpu_torch.bench in this process on phase 5's
+    reads and as `python -m` at its default size, (b)
+    tools/profile_build_torch.py and (c) tools/profile_smooth_torch.py on
+    phase 5's reads, (d) tools/run_ext10m_torch.py on phase 5's first
+    EXT_TOOL_READS reads under a 1 GiB budget, (e) a BQZE container of
+    phase 6's smoothed DNA stream encoded and decoded on the card."""
+    import torch
+
+    from bfqzip_tpu_torch import SmoothConfig, bench
+    from bfqzip_tpu_torch.engine import smooth_fastq
+    from bfqzip_tpu_torch.io import ReadBatch, format_fastq
+    from bfqzip_tpu_torch.models.dna_ebwt import decode_dna_stream, encode_dna_stream
+    from bfqzip_tpu_torch.ops import cuda_scan
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import profile_build_torch
+    import profile_smooth_torch
+
+    t_phase = time.perf_counter()
+    res = {}
+    launches = 0
+
+    # (a) bench: in this process at 2M reads, then the module at its default size
+    cuda_scan.launches = 0
+    res["bench"] = bench.run(batch, "cuda", reps=3)
+    launches += cuda_scan.launches
+    torch.cuda.empty_cache()  # the subprocesses below need the card's memory
+    res["bench_default"] = _tool_json(["-m", "bfqzip_tpu_torch.bench"])
+    launches += sum(res["bench_default"]["seg_scan_launches"])
+    for key in ("bench", "bench_default"):
+        _names_card(res[key], key)
+        if res[key]["seg_scan_launches"] != [5, 5, 5]:
+            fail(f"{key}: seg_scan launched {res[key]['seg_scan_launches']} times per smooth_step, "
+                 "expected 5 each")
+    phase("entry_points_bench", bench_2m=res["bench"], bench_default=res["bench_default"])
+
+    # (b) the build, piece by piece, with a trace of one whole build
+    res["build"] = profile_build_torch.profile(batch, "cuda", os.path.join(WORK, "profile_build"))
+    _names_card(res["build"], "profile_build_torch")
+    pieces = res["build"]["pieces"]
+    if not all(p["ms"] > 0 and p["bound_ms"] for p in pieces.values()) or not res["build"]["trace"]:
+        fail(f"profile_build_torch: a piece was not timed on the card: {pieces}")
+    phase("entry_points_build", **res["build"])
+
+    # (c) smooth, step by step
+    cuda_scan.launches = 0
+    res["smooth"] = profile_smooth_torch.profile(batch, "cuda", os.path.join(WORK, "profile_smooth"))
+    launches += cuda_scan.launches
+    _names_card(res["smooth"], "profile_smooth_torch")
+    if res["smooth"]["smooth"]["seg_scan_launches"] != 5:
+        fail(f"profile_smooth_torch: {res['smooth']['smooth']['seg_scan_launches']} seg_scan "
+             "launches in one smooth, expected 5")
+    if any(s["kernel_launches"] is None for s in res["smooth"]["steps"].values()):
+        fail("profile_smooth_torch: a step's trace holds no device kernels")
+    phase("entry_points_smooth", **res["smooth"])
+
+    # (d) the out-of-core tool on a FASTQ, against smooth_fastq on the same reads
+    k = EXT_TOOL_READS
+    small = ReadBatch(seqs=batch.seqs[:k], quals=batch.quals[:k], lengths=batch.lengths[:k],
+                      headers=[b"@r%d" % i for i in range(k)])
+    fq, out = os.path.join(WORK, "ext_tool.fastq"), os.path.join(WORK, "ext_tool.fq")
+    with open(fq, "wb") as f:
+        f.write(format_fastq(small))
+    torch.cuda.empty_cache()
+    ext = _tool_json(["tools/run_ext10m_torch.py", fq, "--mem-gb", "1", "--out", out],
+                     env={"BFQ_SPILL_DIR": WORK})
+    launches += ext["seg_scan_launches"]
+    _names_card(ext, "run_ext10m_torch")
+    ref, ref_stats = smooth_fastq(small, SmoothConfig(), device="cuda")
+    if _read(out) != format_fastq(ref, headers=None) or ext["stats"] != ref_stats:
+        fail(f"run_ext10m_torch at {k} reads differs from smooth_fastq")
+    if ext["peak_device_bytes"] > ext["budget_bytes"]:
+        fail(f"run_ext10m_torch: peak device bytes {ext['peak_device_bytes']} exceed the "
+             f"{ext['budget_bytes']}-byte budget")
+    res["ext"] = {**ext, "byte_equal_to_smooth_fastq": True}
+    phase("entry_points_ext", **res["ext"])
+    del small, ref
+
+    # (e) BQZE: phase 6's smoothed DNA stream of CODEC_READS reads through
+    # the card, and the CPU's container of the same bytes
+    data = _read(os.path.join(WORK, "small.fq.dna"))
+    cuda_scan.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    blob = encode_dna_stream(data, device="cuda")
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t
+    t = time.perf_counter()
+    back = decode_dna_stream(blob, device="cuda")
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t
+    launches += cuda_scan.launches
+    if back != data:
+        fail("BQZE on the card: the decoded stream differs from the input")
+    t = time.perf_counter()
+    cpu_blob = encode_dna_stream(data, device="cpu")
+    cpu_encode_s = time.perf_counter() - t
+    if cpu_blob != blob:
+        fail("BQZE: the card's container differs from the CPU's")
+    res["bqze"] = {"reads": CODEC_READS, "stream_bytes": len(data), "container_bytes": len(blob),
+                   "ratio": len(data) / len(blob), "entropy_coder": blob[32:36].decode(),
+                   "encode_s": encode_s, "decode_s": decode_s, "cpu_encode_s": cpu_encode_s,
+                   "encode_mb_s": len(data) / 1e6 / encode_s, "decode_mb_s": len(data) / 1e6 / decode_s,
+                   "decode_launches": cuda_scan.launches, "round_trip": True, "equal_to_cpu": True}
+    phase("entry_points_bqze", **res["bqze"])
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    phase("entry_points", seconds=res["seconds"], launches=launches)
+    return res
+
+
 def native_make():
     """Start `make -B -C native` (the host codec library) in the background.
     -B rebuilds a copy left in the tree: it is built with -march=native and
@@ -1564,6 +1684,7 @@ def main(argv) -> int:
     mesh_refused()
     proxy = variant_proxy_phase()
     prof = profile_phase(batch)
+    entry = entry_points(batch)
     del batch
     for package in ("jax", "bfqzip_tpu"):
         if package in sys.modules:
@@ -1574,7 +1695,8 @@ def main(argv) -> int:
         "name": "seg_scan", "route": "cuda", "source": "bfqzip_tpu_torch/csrc/seg_scan.cu",
         "replaces": "bfqzip_tpu/ops/pallas_scan.py:89",
         "launches": (real["launches"] + cli["launches"] + long["launches"] + ext["launches"]
-                     + sum(world1["launches_per_call"]) + proxy["launches"] + prof["launches"]),
+                     + sum(world1["launches_per_call"]) + proxy["launches"] + prof["launches"]
+                     + entry["launches"]),
         # seg_scan launches of one sharded call: world 1 in this process, and
         # each of the gloo ranks sharing the card (flat body)
         "sharded_launches_per_call": {"world1": world1["launches_per_call"],

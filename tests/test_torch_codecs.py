@@ -1,8 +1,11 @@
 """The port's jax-free host codecs against the JAX package: the numpy rANS
 coder is byte-equal to the lax.scan coder, each package decodes the other's
 containers, the native-backed choices and the BQZH header codec give the same
-bytes, and old BQZE archives decode through the port's LF walk, on the card
-unless the CPU is asked for."""
+bytes, the port's BQZE encoder writes the JAX encoder's containers, and BQZE
+archives decode through the port's LF walk, on the card unless the CPU is
+asked for."""
+
+import os
 
 import numpy as np
 import pytest
@@ -18,7 +21,7 @@ from bfqzip_tpu_torch.models import dna_ebwt, headers
 from bfqzip_tpu_torch.ops import rans
 from bfqzip_tpu_torch.pipeline import decompress_stream
 
-from conftest import golden_path
+from conftest import GOLDEN_DIR, golden_path
 from torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 LANES = (8, 64, 1024)
@@ -121,6 +124,48 @@ def test_decode_dna_stream_of_jax_container():
     assert dna_ebwt.decode_dna_stream(blob, device="cpu") == data
     with pytest.raises(ValueError, match="EBWT container"):
         dna_ebwt.decode_dna_stream(b"BQZR" + blob[4:], device="cpu")
+
+
+def _dna_stream(name: str) -> bytes:
+    """The DNA lines of a golden FASTQ, '\\n'-joined as step 4 writes them."""
+    lines = open(golden_path(name), "rb").read().split(b"\n")
+    return b"\n".join(lines[1::4]) + b"\n"
+
+
+_DNA_GOLDENS = sorted(f for f in os.listdir(GOLDEN_DIR) if f.endswith((".fq", ".in.fastq")))
+
+
+@pytest.mark.parametrize("name", _DNA_GOLDENS)
+def test_encode_dna_stream_byte_equal_to_jax(name):
+    """The port builds on the unpadded batch, JAX on its compile bucket:
+    the containers are the same bytes (synth_var has variable lengths and
+    Ns; synth_long takes the doubling build)."""
+    data = _dna_stream(name)
+    blob = dna_ebwt.encode_dna_stream(data, device="cpu")
+    assert blob[:4] == b"BQZE"
+    assert blob == jax_dna_ebwt.encode_dna_stream(data)
+    assert dna_ebwt.decode_dna_stream(blob, device="cpu") == data
+
+
+@pytest.mark.parametrize("data", [b"ACGTNNACGTTGCA\n", b"G\n"], ids=["one_read", "one_base"])
+def test_encode_dna_stream_one_read(data):
+    blob = dna_ebwt.encode_dna_stream(data, device="cpu")
+    assert blob == jax_dna_ebwt.encode_dna_stream(data)
+    assert dna_ebwt.decode_dna_stream(blob, device="cpu") == data
+
+
+@pytest.mark.parametrize("data", [b"hello world\n", b"", b"ACGT", b"ACGT\n\nACGT\n", b"acgt\n"])
+def test_encode_dna_stream_refuses_ineligible_streams(data):
+    assert jax_dna_ebwt.encode_dna_stream(data) is None
+    assert dna_ebwt.encode_dna_stream(data, device="cpu") is None
+
+
+def test_encode_dna_stream_on_cuda_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        dna_ebwt.encode_dna_stream(_dna_stream("example.m2b0.fq"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        dna_ebwt.encode_dna_stream(b"ACGT\n", device="cuda")
 
 
 def test_bqze_decodes_on_the_card_unless_asked_for_the_cpu(tmp_path, monkeypatch):

@@ -56,7 +56,7 @@ print("imported", len(sys.argv) - 1)
 def test_every_module_imports_with_jax_blocked():
     mods = _modules()
     assert {"bfqzip_tpu_torch.engine", "bfqzip_tpu_torch.external", "bfqzip_tpu_torch.ops.cuda_scan",
-            "bfqzip_tpu_torch.utils.cuda_build"} <= set(mods)
+            "bfqzip_tpu_torch.utils.cuda_build", "bfqzip_tpu_torch.bench"} <= set(mods)
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _BLOCK_JAX, *mods], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -64,8 +64,21 @@ def test_every_module_imports_with_jax_blocked():
     assert f"imported {len(mods)}" in proc.stdout
 
 
+TOOLS = ("profile_stages_torch.py", "profile_build_torch.py", "profile_smooth_torch.py",
+         "run_ext10m_torch.py")
+
+
+def test_tools_import_with_jax_blocked():
+    mods = [t.removesuffix(".py") for t in TOOLS]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, os.path.join(REPO, "tools")]))
+    proc = subprocess.run([sys.executable, "-c", _BLOCK_JAX, *mods], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert f"imported {len(mods)}" in proc.stdout
+
+
 def _sources():
-    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tools", "profile_stages_torch.py")]
+    files = [os.path.join(REPO, "chip_smoke.py")] + [os.path.join(REPO, "tools", t) for t in TOOLS]
     for root, _, names in os.walk(PKG_DIR):
         files += [os.path.join(root, f) for f in names if f.endswith((".py", ".cu"))]
     return files

@@ -7,6 +7,7 @@ import os
 import shutil
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -126,6 +127,28 @@ def test_device_memory_stats_cuda_without_a_card_raises(monkeypatch):
         profiling.device_memory_stats("cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         profiling.PhaseProfiler()
+    with pytest.raises(RuntimeError, match="cuda"):
+        profiling.device_info("cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        profiling.best_ms(lambda: None, "cuda")
+
+
+def test_best_ms_and_device_info_on_the_cpu():
+    calls = []
+    ms = profiling.best_ms(lambda: calls.append(time.sleep(0.002)), "cpu", reps=2)
+    assert len(calls) == 3  # a warm-up, then the timed calls
+    assert 2.0 <= ms < 1000
+    assert profiling.device_info("cpu") == {"type": "cpu", "name": "cpu",
+                                            "count": torch.cuda.device_count(), "power_limit": None}
+
+
+def test_rss_sampler_sees_the_peak_of_a_stretch_of_work():
+    with profiling.RssSampler() as rss:
+        big = np.ones(200 << 20, np.uint8)  # 200 MB resident, then freed
+        time.sleep(0.2)
+        del big
+    assert rss.peak - rss.start >= 150 << 20
+    assert profiling.RssSampler.rss() < rss.peak - (100 << 20)
 
 
 # ---- StepLogger telemetry through the pipeline ----
