@@ -18,7 +18,8 @@ utils.native / reorder / debug / logging / checkfastq, and the CLI parser).
   bfqzip_tpu_torch.models    BQZH header codec, BQZE decoder
   bfqzip_tpu_torch.convert   numpy <-> tensor state (EBWT, read batches)
   bfqzip_tpu_torch.io        FASTQ parse / format, spill-backed arrays
-  bfqzip_tpu_torch.utils     nvcc build of csrc/*.cu (ctypes), native host codecs,
+  bfqzip_tpu_torch.utils     builds of csrc/ (nvcc for the .cu kernel, c++ for the
+                             out-of-core merge extmerge.cpp; ctypes), native host codecs,
                              StepLogger, profiling (phase timers, torch.profiler
                              timelines), the variant-preservation proxy,
                              checkfastq, reorder, debug dumps

@@ -8,9 +8,11 @@ every read is shorter than 255 bp.
   1. chunked stage 1: each read chunk's suffixes are sorted on the device
      (ops/suffix.build_ebwt, flat or doubling by read width); only the
      chunk's suffix positions and 255-capped LCPs come back to the host;
-  2. the native k-way merge (native/extmerge.cpp through
-     utils/native.ext_merge) interleaves the chunk orders into the
-     global BWT, QS, 1-byte LCP, smoothing predecessor and SA;
+  2. the k-way merge (the port's csrc/extmerge.cpp through
+     utils/native.ext_merge_async) interleaves the chunk orders into the
+     global BWT, QS, 1-byte LCP, smoothing predecessor and SA on host
+     threads, while stage 3 smooths the merged prefix (BFQ_EXT_OVERLAP=0:
+     the merge ends before smoothing starts);
   3. streaming cluster smoothing: ops/smooth.cluster_words runs per device
      segment through SeqChunkOps, whose every scan takes the previous
      segment's boundary value as the CUDA kernel's per-channel init, so the
@@ -20,9 +22,11 @@ every read is shorter than 255 bp.
   4. inversion is the host scatter grid[(SA-1) mod n_pad], per segment.
 
 Differences from the JAX package, none of which changes a byte:
-  - the merge runs before smoothing, as the JAX route does under
-    BFQ_EXT_OVERLAP=0; its live-progress variant (ext_merge_async) can
-    publish a range end before the successor's boundary LCP is fixed;
+  - the merge is the port's own copy, whose live prefix never shows a range
+    seam before its boundary LCP is fixed and grows at the whole thread
+    pool's rate (ordered ranges, more than the threads); an error in the
+    overlapped merge raises in the caller, and a stage that raises while
+    the merge runs joins it before the spill files close;
   - the last chunk is sorted at its own size (no compile shape to pad to);
   - a chunk's outputs are copied to the host before the next chunk sorts,
     so the device holds one chunk;
@@ -272,9 +276,11 @@ def _resolve_spill(spill, n_pad: int):
         return None, False
     # a full scratch disk SIGBUSes the memmap writers mid-run: check the
     # projected footprint up front (~19 B/pos at the merge's peak, 27 with
-    # 64-bit positions) and degrade to in-RAM host arrays
+    # 64-bit positions, plus the 2 B/pos packed output that smoothing
+    # allocates while the overlapped merge still holds its inputs) and
+    # degrade to in-RAM host arrays
     free = shutil.disk_usage(sp.dir).free
-    need = n_pad * (27 if n_pad >= (1 << 31) else 19)
+    need = n_pad * (29 if n_pad >= (1 << 31) else 21)
     if free < need:
         _LOG.warning(
             "spill dir %s has %.1f GB free but ~%.1f GB projected; falling back to in-RAM "
@@ -311,21 +317,109 @@ def smooth_fastq_external(
     cfg = cfg or SmoothConfig()
     dev = resolve_device(device)
     if not native.ext_merge_available():
-        raise RuntimeError("external mode needs the native library (make -C native)")
+        raise RuntimeError("external mode needs the port's native merge (csrc/extmerge.cpp), "
+                           "which the host C++ compiler c++ builds")
     n_reads, width = batch.seqs.shape
     wp = width + 1
     n_pad = n_reads * wp
     sp, own_spill = _resolve_spill(spill, n_pad)
     try:
-        return _run(batch, cfg, mem_bytes, dev, _seg_len, _reads_per_chunk, sp, out_path,
-                    report if report is not None else {})
+        # `running` joins a merge still running when a stage raises, before the spill closes
+        with contextlib.ExitStack() as running:
+            return _run(batch, cfg, mem_bytes, dev, _seg_len, _reads_per_chunk, sp, out_path,
+                        report if report is not None else {}, running)
     except BaseException:
         if own_spill:
             sp.close()
         raise
 
 
-def _run(batch, cfg, mem_bytes, dev, seg_len_arg, rpc_arg, sp, out_path, rep):
+_MERGE_INPUTS = ("text", "qtext", "sa_all", "lcp_all")
+_MERGE_OUTPUTS = ("bwt", "qs", "lcp", "pre", "sa")
+
+
+class _Merge:
+    """The k-way merge, overlapped with smoothing or (overlap=False) run to
+    its end on start().
+
+    It holds the merge's inputs and, with spill files, the watcher that
+    drops their finished pages, until the merge has joined.  wait(pos)
+    blocks until the merged prefix covers pos and adds the seconds blocked
+    to merge_wait_s; finish() joins the merge, raises its error in the
+    caller's thread, and drops the inputs; close() joins a merge that is
+    still running when a later stage raised, so that nothing writes into
+    the spill files once they close."""
+
+    def __init__(self, inputs, outputs, sp, overlap: bool, rep: dict, mark):
+        self.inputs = inputs  # text, qtext, (sa_all, offs), lcp_all
+        self.outputs = outputs
+        self.sp = sp
+        self.overlap = overlap
+        self.rep = rep
+        self.mark = mark
+        self.handle = None
+        self.watcher = None
+        self.done = False
+        self.wait_s = 0.0
+
+    def start(self) -> None:
+        self.t0 = time.time()
+        self.rep["overlap"] = self.overlap
+        if self.sp is not None:
+            # the merge streams k cursors through the inputs and writes its
+            # outputs in order; the watcher keeps dropping finished pages
+            self.watcher = self.sp.watcher(*_MERGE_INPUTS, *_MERGE_OUTPUTS)
+            self.watcher.__enter__()
+        text, qtext, sa_chunks, lcp_all = self.inputs
+        if self.overlap:
+            self.handle = native.ext_merge_async(text, qtext, sa_chunks, lcp_chunks=lcp_all,
+                                                 out=self.outputs)
+        else:
+            native.ext_merge(text, qtext, sa_chunks, lcp_all, out=self.outputs)
+            self.finish()
+
+    def wait(self, pos: int) -> None:
+        if self.done:
+            return
+        t = time.time()
+        self.handle.wait_until(pos)
+        self.wait_s += time.time() - t
+        if self.handle.finished(0):
+            self.finish()  # the inputs go as soon as the merge has ended
+
+    def finish(self) -> None:
+        if self.done:
+            return
+        self.done = True
+        try:
+            if self.handle is not None:
+                self.handle.join()
+                self.rep["merge_wait_s"] = round(self.wait_s, 2)
+                self.rep["merge_prefix_s"] = {str(f): round(t, 2) for f, t in self.handle.prefix_s.items()}
+        finally:
+            self._release()
+        _LOG.info("stage 1: k-way merge done (%.1fs)", time.time() - self.t0)
+        self.mark("merge", self.t0)
+
+    def close(self) -> None:
+        """After an error: wait for a running merge, then release it."""
+        if self.done:
+            return
+        self.done = True
+        if self.handle is not None:
+            self.handle.finished()
+        self._release()
+
+    def _release(self) -> None:
+        if self.watcher is not None:
+            self.watcher.__exit__(None, None, None)
+            self.sp.evict_all(*_MERGE_OUTPUTS)
+            for name in _MERGE_INPUTS:
+                self.sp.drop(name)
+        self.inputs = None
+
+
+def _run(batch, cfg, mem_bytes, dev, seg_len_arg, rpc_arg, sp, out_path, rep, running):
     n_reads, width = batch.seqs.shape
     wp = width + 1
     n_pad = n_reads * wp
@@ -393,29 +487,18 @@ def _run(batch, cfg, mem_bytes, dev, seg_len_arg, rpc_arg, sp, out_path, rep):
     rep["n_chunks"] = n_chunks
     mark("chunk_sorts", t_text)
 
-    # ---- the native k-way merge, before smoothing starts ----
-    t_merge = time.time()
+    # ---- the k-way merge: smoothing consumes its merged prefix live ----
     if sp is not None:
-        bwt_h = sp.alloc("bwt", (n,), np.uint8)
-        qs_h = sp.alloc("qs", (n,), np.uint8)
-        lcp_h = sp.alloc("lcp", (n,), np.uint8)
-        pre_h = sp.alloc("pre", (n,), np.uint8)
-        sa_h = sp.alloc("sa", (n,), sa_dtype)
-        # the merge streams k cursors through the inputs and writes its
-        # outputs in order; the watcher keeps dropping finished pages
-        with sp.watcher("text", "qtext", "sa_all", "lcp_all", "bwt", "qs", "lcp", "pre", "sa"):
-            native.ext_merge(text, qtext, (sa_store[:n], np.asarray(offs, np.int64)),
-                             lcp_chunks=lcp_store[:n], out=(bwt_h, qs_h, lcp_h, pre_h, sa_h))
-        sp.evict_all("bwt", "qs", "lcp", "pre", "sa")
-        text = qtext = sa_store = lcp_store = None
-        for name in ("text", "qtext", "sa_all", "lcp_all"):
-            sp.drop(name)
+        outputs = tuple(sp.alloc(name, (n,), np.uint8) for name in _MERGE_OUTPUTS[:4]) + (
+            sp.alloc("sa", (n,), sa_dtype),)
     else:
-        bwt_h, qs_h, lcp_h, pre_h, sa_h = native.ext_merge(
-            text, qtext, (sa_store[:n], np.asarray(offs, np.int64)), lcp_chunks=lcp_store[:n])
-        text = qtext = sa_store = lcp_store = None
-    _LOG.info("stage 1: native k-way merge done (%.1fs)", time.time() - t_merge)
-    mark("merge", t_merge)
+        outputs = tuple(np.empty(n, np.uint8) for _ in range(4)) + (np.empty(n, sa_dtype),)
+    bwt_h, qs_h, lcp_h, pre_h, sa_h = outputs
+    merge = _Merge((text, qtext, (sa_store[:n], np.asarray(offs, np.int64)), lcp_store[:n]), outputs,
+                   sp, os.environ.get("BFQ_EXT_OVERLAP", "1") != "0", rep, mark)
+    running.callback(merge.close)  # joined before the caller closes the spill
+    text = qtext = sa_store = lcp_store = None  # the merge holds them until it joins
+    merge.start()
 
     # ---- stage 2: streaming cluster smoothing (forward pass applies) ----
     # (no longer than the data: the JAX package's one compiled shape needs
@@ -464,6 +547,8 @@ def _run(batch, cfg, mem_bytes, dev, seg_len_arg, rpc_arg, sp, out_path, rep):
     n_t = torch.tensor(n, dtype=idx_dtype, device=dev)
     t0 = time.time()
     for s in range(n_seg):
+        # this segment's window, halo included, must be merged and final
+        merge.wait(min((s + 1) * seg_len + halo, n))
         (packed, stats, carries, scalars, tb, tq, tpend, word, close, inclu) = _part1_segment(
             seg_slice_bp(s), seg_slice(qs_h, s, 0), seg_slice(lcp_h, s, 0),
             torch.tensor(s * seg_len, dtype=idx_dtype, device=dev), n_t, carries,
@@ -496,6 +581,7 @@ def _run(batch, cfg, mem_bytes, dev, seg_len_arg, rpc_arg, sp, out_path, rep):
         del packed, stats, scalars, tb, tq, tpend, word, close, inclu
         _LOG.info("stage 2: segment %d/%d done (%.1fs elapsed)", s + 1, n_seg, time.time() - t0)
     del carries
+    merge.finish()
 
     # phase B: reverse sweep of the first-close words + the small fix-ups
     right_carry = np.zeros(n_seg, np.int64)

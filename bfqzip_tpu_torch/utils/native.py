@@ -1,20 +1,28 @@
-"""ctypes bindings for the native C++ runtime (native/libbfqnative.so).
+"""ctypes bindings for the native C++ runtime.
 
 The port's copy of the entry points of bfqzip_tpu/utils/native.py that the
-port calls: FASTQ parsing, the rANS and BQZC codecs and the out-of-core
-k-way merge.  It loads the shared library that `make -C native` builds in
-the repository's native/ directory (at first use, if it is missing).
-Parsing and the rANS coder have numpy fallbacks, so the package works
-without the library; BQZC and the merge need it.
+port calls.  FASTQ parsing and the rANS and BQZC codecs load the shared
+library that `make -C native` builds in the repository's native/ directory
+(at first use, if it is missing); parsing and the rANS coder have numpy
+fallbacks, so the package works without it, and BQZC needs it.  The
+out-of-core k-way merge is the port's own, csrc/extmerge.cpp, built by
+utils/cuda_build with the host compiler at first use: ext_merge runs it
+while the caller waits, ext_merge_async on a thread whose merged prefix a
+consumer reads while it runs.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import shutil
+import threading
+import time
 from typing import Optional
 
 import numpy as np
+
+from bfqzip_tpu_torch.utils import cuda_build
 
 _LIB = None
 _SEARCHED = False
@@ -64,10 +72,6 @@ def _find_lib():
         lib.cm_encode_blocked.argtypes = [vp, i64, vp, i64, i64, i32, i32]
         lib.cm_decode.restype = i64
         lib.cm_decode.argtypes = [vp, i64, vp, i64]
-        for name in ("ext_merge_mt2", "ext_merge_mt3"):  # int32 / int64 positions
-            fn = getattr(lib, name)
-            fn.restype = i64
-            fn.argtypes = [vp, vp, i64, vp, vp, vp, i32, vp, vp, vp, vp, vp, i32]
     except (OSError, AttributeError):
         return None
     _LIB = lib
@@ -176,57 +180,204 @@ def cm_decode(blob: bytes) -> Optional[np.ndarray]:
     return out
 
 
+# ---- the out-of-core k-way merge (csrc/extmerge.cpp) ----
+
+_MERGE = None
+# the emits between two progress publishes of a live merge
+PROGRESS_STEP = 1 << 18
+# the merged-prefix marks ExtMergeHandle.prefix_s times, as fractions of the total
+PREFIX_MARKS = (0.25, 0.5, 0.75, 1.0)
+
+
+def _merge_lib():
+    """The port's merge library, built at first use; raises if it cannot be."""
+    global _MERGE
+    if _MERGE is None:
+        lib = cuda_build.load("extmerge")
+        vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        serial = [vp, vp, i64, vp, vp, vp, i32, vp, vp, vp, vp, vp, i32, i32]
+        for name, args in (("ext_merge_mt2", serial), ("ext_merge_mt3", serial),
+                           ("ext_merge_mt2p", serial + [vp, i64]),
+                           ("ext_merge_mt3p", serial + [vp, i64])):
+            fn = getattr(lib, name)
+            fn.restype = i64
+            fn.argtypes = args
+        lib.ext_merge_prefix.restype = i64
+        lib.ext_merge_prefix.argtypes = [vp]
+        _MERGE = lib
+    return _MERGE
+
+
 def ext_merge_available() -> bool:
-    return _find_lib() is not None
+    """Whether the merge can run: its library is built, or the host C++
+    compiler that builds it is on PATH (the build raises with its output)."""
+    return _MERGE is not None or shutil.which("c++") is not None or os.path.exists(
+        cuda_build.library_path("extmerge"))
 
 
-def ext_merge(text: np.ndarray, qtext: np.ndarray, sa_chunks, lcp_chunks: np.ndarray, out=None):
-    """K-way merge of per-chunk sorted suffix orders (native/extmerge.cpp).
+def ext_merge_async_available() -> bool:
+    """The live merge comes from the same library as the serial one."""
+    return ext_merge_available()
+
+
+def _merge_threads(threads: int) -> int:
+    if threads > 0:
+        return threads
+    env = os.environ.get("BFQ_EXT_THREADS")
+    return int(env) if env and int(env) > 0 else (os.cpu_count() or 2)
+
+
+def _merge_args(text, qtext, sa_chunks, lcp_chunks, out):
+    """Contiguous inputs and the five outputs of a merge, checked."""
+    text = np.ascontiguousarray(text, np.uint8)
+    qtext = np.ascontiguousarray(qtext, np.uint8)
+    if isinstance(sa_chunks, tuple):
+        sa_all, offs = sa_chunks
+        sa_dtype = np.int64 if sa_all.dtype == np.int64 else np.int32
+        offs = np.ascontiguousarray(offs, np.int64)
+    else:
+        sa_dtype = np.int64 if any(np.asarray(c).dtype == np.int64 for c in sa_chunks) else np.int32
+        sa_all = np.concatenate(sa_chunks)
+        offs = np.zeros(len(sa_chunks) + 1, np.int64)
+        np.cumsum([len(c) for c in sa_chunks], out=offs[1:])
+    sa_all = np.ascontiguousarray(sa_all, sa_dtype)
+    total = int(offs[-1])
+    if lcp_chunks is None:
+        lcp_all = None
+    else:
+        lcp_all = np.ascontiguousarray(
+            lcp_chunks if isinstance(lcp_chunks, np.ndarray) else np.concatenate(lcp_chunks), np.uint8)
+        if lcp_all.size != total:
+            raise ValueError("lcp_chunks must align with sa_chunks")
+    if out is not None:
+        if any(a.size != total for a in out):
+            raise ValueError("out arrays must have the merged total size")
+        if out[4].dtype != sa_dtype:
+            raise ValueError(f"out sa dtype {out[4].dtype} != input {sa_dtype}")
+    else:
+        out = tuple(np.empty(total, np.uint8) for _ in range(4)) + (np.empty(total, sa_dtype),)
+    # each pointer keeps its array alive (numpy's data_as) while the merge runs
+    args = [_ptr(text), _ptr(qtext), ctypes.c_int64(text.size),
+            _ptr(sa_all), _ptr(lcp_all) if lcp_all is not None else None,
+            _ptr(offs), ctypes.c_int32(offs.size - 1), *(_ptr(a) for a in out)]
+    return args, out, total, sa_dtype == np.int64
+
+
+def ext_merge(text: np.ndarray, qtext: np.ndarray, sa_chunks, lcp_chunks, out=None, *,
+              threads: int = 0, ranges: int = 0):
+    """K-way merge of per-chunk sorted suffix orders (csrc/extmerge.cpp).
 
     text/qtext: [n_pad] u8 padded layout (0 = terminator/pad); sa_chunks: a
     tuple (sa_all, offs) of the chunks' GLOBAL suffix positions, each chunk
     sorted by suffix, concatenated (int32, or int64 beyond 2^31 positions),
-    plus int64 chunk offsets.  lcp_chunks: the aligned u8 255-capped
-    intra-chunk LCPs from the device sorts, which make the merge's loser
-    tree compare integers and walk the text only on exact ties.  Returns
-    (bwt, qs, lcp_u8, pre, sa) in merged order, merged on one host thread
-    per core (BFQ_EXT_THREADS overrides the count).  out (optional): 5
-    preallocated arrays (bwt, qs, lcp, pre, sa), np.memmap for the
-    bounded-RSS path.
+    plus int64 chunk offsets, or a list of the chunks.  lcp_chunks: the
+    aligned u8 255-capped intra-chunk LCPs from the device sorts, which make
+    the merge's loser tree compare integers and walk the text only on exact
+    ties, or None (the word-wise tree).  Returns (bwt, qs, lcp_u8, pre, sa)
+    in merged order, merged on `threads` host threads (0: one per core,
+    BFQ_EXT_THREADS overrides) over `ranges` output ranges (0: 8 per
+    thread).  out (optional): 5 preallocated arrays (bwt, qs, lcp, pre,
+    sa), np.memmap for the bounded-RSS path.
     """
-    lib = _find_lib()
-    if lib is None:
-        raise RuntimeError("native ext_merge unavailable (make -C native)")
-    text = np.ascontiguousarray(text, np.uint8)
-    qtext = np.ascontiguousarray(qtext, np.uint8)
-    sa_all, offs = sa_chunks
-    wide = sa_all.dtype == np.int64
-    sa_dtype = np.int64 if wide else np.int32
-    sa_all = np.ascontiguousarray(sa_all, sa_dtype)
-    offs = np.ascontiguousarray(offs, np.int64)
-    total = int(offs[-1])
-    lcp_all = np.ascontiguousarray(lcp_chunks, np.uint8)
-    if lcp_all.size != total:
-        raise ValueError("lcp_chunks must align with sa_chunks")
-    if out is not None:
-        bwt, qs, lcp, pre, sa = out
-        if any(a.size != total for a in out):
-            raise ValueError("out arrays must have the merged total size")
-        if sa.dtype != sa_dtype:
-            raise ValueError(f"out sa dtype {sa.dtype} != input {sa_dtype}")
-    else:
-        bwt = np.empty(total, np.uint8)
-        qs = np.empty(total, np.uint8)
-        lcp = np.empty(total, np.uint8)
-        pre = np.empty(total, np.uint8)
-        sa = np.empty(total, sa_dtype)
+    lib = _merge_lib()
+    args, out, total, wide = _merge_args(text, qtext, sa_chunks, lcp_chunks, out)
     fn = lib.ext_merge_mt3 if wide else lib.ext_merge_mt2
-    rc = fn(
-        _ptr(text), _ptr(qtext), ctypes.c_int64(text.size),
-        _ptr(sa_all), _ptr(lcp_all), _ptr(offs), ctypes.c_int32(offs.size - 1),
-        _ptr(bwt), _ptr(qs), _ptr(lcp), _ptr(pre), _ptr(sa),
-        ctypes.c_int32(0),  # 0: the native side picks the thread count
-    )
+    rc = fn(*args, ctypes.c_int32(threads), ctypes.c_int32(ranges))
     if rc != total:
         raise RuntimeError(f"native ext_merge rc={rc} (expected {total})")
-    return bwt, qs, lcp, pre, sa
+    return out
+
+
+class ExtMergeHandle:
+    """A running k-way merge whose merged PREFIX can be consumed live.
+
+    merged_prefix() returns P such that every output position < P is final
+    (BWT/QS/LCP/pre/SA all written, the boundary LCPs of the range seams
+    fixed); it reads the merge's cursors with acquire loads.  wait_until(pos)
+    blocks until P >= pos; join() waits for the merge and raises its error
+    (a negative rc, or whatever the thread raised) in the caller's thread,
+    as wait_until does once the merge has ended.  prefix_s maps each of
+    PREFIX_MARKS to the seconds after the start at which the prefix first
+    reached that share of the total (sampled every 5 ms).  outputs holds the
+    five output arrays.
+    """
+
+    def __init__(self, lib, prog: np.ndarray, total: int, outputs, run):
+        self.outputs = outputs
+        self.total = total
+        self.prefix_s: dict = {}
+        self._lib = lib
+        self._prog = prog
+        self._result: dict = {}
+        self._done = threading.Event()
+        self.started = time.perf_counter()
+
+        def merge():
+            try:
+                self._result["rc"] = rc = run()
+                if rc != total:
+                    self._result["error"] = RuntimeError(f"native ext_merge rc={rc} (expected {total})")
+            except BaseException as e:  # surfaces in join(): never dies silently
+                self._result["error"] = e
+            finally:
+                self._done.set()
+
+        self._thread = threading.Thread(target=merge, daemon=True, name="ext_merge")
+        self._watcher = threading.Thread(target=self._watch, daemon=True, name="ext_merge_prefix")
+        self._thread.start()
+        self._watcher.start()
+
+    def _watch(self) -> None:
+        pending = list(PREFIX_MARKS)
+        while pending:
+            done = self._done.wait(0.005)
+            p = self.merged_prefix()
+            t = time.perf_counter() - self.started
+            while pending and p >= pending[0] * self.total:
+                self.prefix_s[pending.pop(0)] = t
+            if done:
+                return
+
+    def merged_prefix(self) -> int:
+        return int(self._lib.ext_merge_prefix(_ptr(self._prog)))
+
+    def finished(self, timeout: Optional[float] = None) -> bool:
+        """Whether the merge thread has ended, waiting up to `timeout`
+        seconds (None: until it ends); raises nothing."""
+        return self._done.wait(timeout)
+
+    def wait_until(self, pos: int, poll_s: float = 0.01) -> None:
+        pos = min(pos, self.total)
+        while self.merged_prefix() < pos:
+            if self._done.wait(poll_s):
+                self.join()  # raises on error; else the whole output is final
+                return
+
+    def join(self) -> int:
+        self._thread.join()
+        self._watcher.join()
+        if "error" in self._result:
+            raise self._result["error"]
+        return self._result["rc"]
+
+
+def ext_merge_async(text: np.ndarray, qtext: np.ndarray, sa_chunks, threads: int = 0,
+                    lcp_chunks=None, out=None, *, ranges: int = 0,
+                    step: int = PROGRESS_STEP) -> ExtMergeHandle:
+    """Start ext_merge on a background thread (the ctypes call releases the
+    GIL) and return a live-progress handle, so downstream stages can consume
+    the merged prefix while the merge runs.  Same arguments as ext_merge;
+    `step` (a power of two) is the number of emits between two progress
+    publishes of a range."""
+    lib = _merge_lib()
+    threads = _merge_threads(threads)
+    ranges = ranges if ranges > 0 else 8 * threads
+    args, out, total, wide = _merge_args(text, qtext, sa_chunks, lcp_chunks, out)
+    prog = np.zeros(1 + 3 * ranges, np.int64)  # the merge uses at most `ranges` ranges
+    fn = lib.ext_merge_mt3p if wide else lib.ext_merge_mt2p
+
+    def run():
+        return fn(*args, ctypes.c_int32(threads), ctypes.c_int32(ranges), _ptr(prog),
+                  ctypes.c_int64(step))
+
+    return ExtMergeHandle(lib, prog, total, out, run)

@@ -5,7 +5,8 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
 
 Phases, each printed on its own line; the first failure exits non-zero:
   1. environment  card name and power limit, torch/CUDA/nvcc versions, triton
-  2. build        nvcc builds csrc/seg_scan.cu from the checkout
+  2. build        nvcc builds csrc/seg_scan.cu and c++ the out-of-core
+                  merge csrc/extmerge.cpp from the checkout, both at once
   3. kernel       the CUDA seg_scan against its plain PyTorch version on the
                   card: every op/dtype (int32 and int64 add/max/or/keepleft,
                   int64 values past 2^31, float64 add), C in {1, 5} (odd n
@@ -39,20 +40,30 @@ Phases, each printed on its own line; the first failure exits non-zero:
                   peak device bytes, the identity round trip, changed bases
                   == modified, kernel-vs-plain smooth
   8. external     the out-of-core path: (a) the phase-6 FASTQ through
-                  cli --ext-mem --mem 4096 -0, byte-equal to phase 6's
-                  in-core .fq, >= 8 chunks and >= 4 segments, peak device
-                  bytes within the budget; (b) 500K reads with
-                  BFQ_EXT_SA64=1 (int64 coordinates and kernel scans) equal
-                  to the int32 route; (c) 4M x 101 bp (404M positions, more
-                  than one card holds in memory) under an 8 GiB budget with
-                  spill files: stage seconds, peak device bytes within the
-                  budget, peak host RSS, bases/s, launches per segment;
-                  (d) a chunk sort's peak bytes per position at widths
-                  101-1000 bp within the constant that sizes the chunks, and
-                  400K x 250 bp under a 2 GiB budget, peak within it and
-                  byte-equal to smooth_fastq.  In (a), (c) and (d) one
-                  middle segment is rerun with the plain scans on its
-                  recorded window and carries: every output equal
+                  cli --ext-mem --mem 4096 -0 (the merge overlapped with
+                  smoothing), byte-equal to phase 6's in-core .fq, >= 8
+                  chunks and >= 4 segments, peak device bytes within the
+                  budget; (b) 500K reads with BFQ_EXT_SA64=1 (int64
+                  coordinates and kernel scans) equal to the int32 route;
+                  (c) 4M x 101 bp (404M positions, more than one card holds
+                  in memory) under an 8 GiB budget with spill files, three
+                  times: the merge overlapped (the default), serial
+                  (BFQ_EXT_OVERLAP=0) and overlapped on the cores minus 2
+                  threads, equal by a digest of the smoothed reads taken
+                  before the spill closes; each run's seconds, bases/s,
+                  chunk-sort / merge / merge-wait / smooth / emit seconds,
+                  prefix curve, peak device bytes within the budget, peak
+                  host RSS, launches per segment; (d) a chunk sort's peak
+                  bytes per position at widths 101-1000 bp within the
+                  constant that sizes the chunks, and 400K x 250 bp under a
+                  2 GiB budget, peak within it and byte-equal to
+                  smooth_fastq; (e) tools/bench_extmerge_torch.py on 250K of
+                  phase 6's reads: the port's merge threaded and on one
+                  thread, with and without chunk LCPs (all equal), and the
+                  live merge's prefix curve with one and eight ranges per
+                  thread.  In (a), (c) and (d) one middle segment is rerun
+                  with the plain scans on its recorded window and carries:
+                  every output equal
   9. sharded      the sequence-sharded pipeline (bfqzip_tpu_torch.parallel):
                   (a) smooth_fastq_sharded as the one rank of an NCCL group,
                   at the largest count (<= 2M) of phase 5's reads whose peak
@@ -116,6 +127,7 @@ with two or more cards; neither prints a kernels line or a result line.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -140,6 +152,7 @@ CODEC_READS = 200_000
 LONG_READS, LONG_LEN = 300_000, 600  # 180.3M suffix positions
 SA64_READS = 500_000
 BIG_READS = 4_000_000  # 404M positions: the in-core engine would need ~80 GB
+MERGE_BENCH_READS = 250_000  # 8 (e): 25.5M positions, so the one-thread merges stay short
 SEG_CHECKED = 4  # the out-of-core segment held against the plain scans (of 10)
 BUDGET_WIDTHS = (101, 151, 201, 251, 323, 330, 600, 1000)  # flat to 323 bp, then doubling
 BUDGET_CHUNK_POS = 20_000_000  # positions per measured chunk sort
@@ -206,13 +219,19 @@ def environment() -> str:
 
 
 def build() -> None:
-    from bfqzip_tpu_torch.utils import cuda_build
+    """nvcc builds the kernel and the host compiler the port's k-way merge,
+    both at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from bfqzip_tpu_torch.utils import cuda_build, native
 
     t = time.time()
-    _, log = cuda_build.build("seg_scan")
-    cuda_build.load("seg_scan")  # the library the wrapper uses
-    ptxas = [ln for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-    phase("build", seconds=time.time() - t, ptxas=ptxas)
+    with ThreadPoolExecutor(2) as pool:
+        kernel, merge = pool.map(cuda_build.build, ("seg_scan", "extmerge"))
+    cuda_build.load("seg_scan")  # the libraries the wrappers use
+    native._merge_lib()
+    ptxas = [ln for ln in kernel[1].splitlines() if "registers" in ln or "spill" in ln]
+    phase("build", seconds=time.time() - t, ptxas=ptxas, extmerge=os.path.relpath(merge[0], ROOT))
 
 
 def _flags(pattern: str, n: int, gen):
@@ -914,6 +933,8 @@ def external_path(real) -> dict:
     peak_a = step["peak_bytes_in_use"] - base_bytes
     if _read(out + ".fq") != _read(os.path.join(WORK, "real.fq")):
         fail("--ext-mem .fq differs from the in-core CLI's .fq at 2M reads")
+    if not rep["overlap"]:
+        fail("--ext-mem ran the serial merge; the merge || smooth overlap is the default")
     if rep["n_chunks"] < 8 or rep["n_segments"] < 4:
         fail(f"--ext-mem ran {rep['n_chunks']} chunks and {rep['n_segments']} segments, "
              "expected >= 8 and >= 4")
@@ -947,8 +968,67 @@ def external_path(real) -> dict:
                    "launches_by_dtype": by_dtype}
     del batch, routes, o32, o64
 
-    # (c) 404M positions under an 8 GiB budget, with spill files
+    # (c) 404M positions under an 8 GiB budget, with spill files: the merge
+    # overlapped with smoothing (the default), serial, and overlapped on two
+    # threads fewer than the cores this process may use
     batch, t_data = real_batch(BIG_READS, REAL_LEN)
+    cores = len(os.sched_getaffinity(0))
+    runs = {
+        "overlap": _big_run(batch, cfg, {"BFQ_EXT_OVERLAP": "1", "BFQ_EXT_THREADS": None}, True),
+        "serial": _big_run(batch, cfg, {"BFQ_EXT_OVERLAP": "0", "BFQ_EXT_THREADS": None}, False),
+        f"overlap_{cores - 2}_threads": _big_run(
+            batch, cfg, {"BFQ_EXT_OVERLAP": "1", "BFQ_EXT_THREADS": str(cores - 2)}, False),
+    }
+    if len({(r["digest"], json.dumps(r["stats"], sort_keys=True)) for r in runs.values()}) != 1:
+        fail(f"out-of-core at {BIG_READS} reads: the runs differ: "
+             f"{ {k: (r['digest'], r['stats']) for k, r in runs.items()} }")
+    res["big"] = {"reads": BIG_READS, "n_pad": BIG_READS * (REAL_LEN + 1), "data_s": t_data,
+                  "cpu_count": os.cpu_count(), "cpu_affinity": cores, "byte_equal": True, **runs}
+    launches_c = sum(r["launches"] for r in runs.values())
+    del batch
+    res["budget"] = budget_by_width(cfg)
+    res["launches"] = launches_a + launches_b + launches_c + res["budget"]["launches"]
+    phase("external", **res)
+    res["bench"] = merge_bench()
+    return res
+
+
+@contextlib.contextmanager
+def _environ(env: dict):
+    """The environment variables `env` set for the block (None: unset)."""
+    saved = {k: os.environ.get(k) for k in env}
+
+    def apply(values):
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    apply(env)
+    try:
+        yield
+    finally:
+        apply(saved)
+
+
+def _big_run(batch, cfg, env: dict, check_segment: bool) -> dict:
+    """One run of phase 8 (c) with `env` set (None unsets a variable):
+    seconds, bases/s, stage seconds (merge_wait_s: smoothing blocked on the
+    merged prefix), peak device bytes within the budget, peak host RSS, the
+    prefix curve, launches, and a digest of the smoothed reads taken before
+    the spill files close; with check_segment, one middle segment rerun with
+    the plain scans."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from bfqzip_tpu_torch.external import smooth_fastq_external
+    from bfqzip_tpu_torch.io.spill import Spill
+    from bfqzip_tpu_torch.ops import cuda_scan
+    from bfqzip_tpu_torch.utils.profiling import RssSampler
+
     mem = 8 << 30
     os.makedirs(WORK, exist_ok=True)
     sp = Spill(dir=WORK)
@@ -958,38 +1038,62 @@ def external_path(real) -> dict:
     torch.cuda.reset_peak_memory_stats()
     cuda_scan.launches = 0
     rep = {}
+    seg = _SegmentCheck(SEG_CHECKED) if check_segment else None
     t = time.perf_counter()
     try:
-        with RssSampler() as rss, _SegmentCheck(SEG_CHECKED) as seg_c:
+        with _environ(env), RssSampler() as rss, seg or contextlib.nullcontext():
             out, stats = smooth_fastq_external(batch, cfg, mem, device="cuda", spill=sp, report=rep)
         seconds = time.perf_counter() - t
-        peak_c = torch.cuda.max_memory_allocated() - base_bytes
-        launches_c = cuda_scan.launches
-        changed = int((np.asarray(out.seqs) != batch.seqs).sum())
+        peak = torch.cuda.max_memory_allocated() - base_bytes
+        launches = cuda_scan.launches
+        digest, changed, slab = hashlib.sha256(), 0, 1 << 20
+        for lo in range(0, batch.num_reads, slab):
+            seqs, quals = np.asarray(out.seqs[lo:lo + slab]), np.asarray(out.quals[lo:lo + slab])
+            digest.update(seqs.tobytes())
+            digest.update(quals.tobytes())
+            changed += int((seqs != batch.seqs[lo:lo + slab]).sum())
         spilled = isinstance(out.seqs, np.memmap)
         del out
     finally:
         sp.close()
+    what = f"out-of-core at {BIG_READS} reads with {env}"
     if changed != stats["modified"] or stats["num_clust"] == 0:
-        fail(f"out-of-core at {BIG_READS} reads: {changed} bases changed for "
-             f"modified={stats['modified']}")
-    if peak_c > mem:
-        fail(f"out-of-core peak device bytes {peak_c} exceed the {mem}-byte budget")
-    if launches_c < 5 * rep["n_segments"]:
-        fail(f"seg_scan launched {launches_c} times over {rep['n_segments']} segments")
-    res["big"] = {"reads": BIG_READS, "n_pad": BIG_READS * (REAL_LEN + 1), "data_s": t_data,
-                  "budget_bytes": mem, "seconds": seconds, "peak_device_bytes": peak_c,
-                  "bases_per_s": BIG_READS * REAL_LEN / seconds, "report": rep,
-                  "rss_before_bytes": rss.start, "peak_rss_bytes": rss.peak,
-                  "spilled": spilled, "spill_free_disk": free_disk,
-                  "launches": launches_c, "launches_per_segment": launches_c / rep["n_segments"],
-                  "changed": changed, "stats": stats,
-                  "segment_record_bytes": sum(t.nbytes for _, t in _flat_tensors(seg_c.record)),
-                  "segment_vs_plain": seg_c.check(f"out-of-core at {BIG_READS} reads")}
-    del batch
-    res["budget"] = budget_by_width(cfg)
-    res["launches"] = launches_a + launches_b + launches_c + res["budget"]["launches"]
-    phase("external", **res)
+        fail(f"{what}: {changed} bases changed for modified={stats['modified']}")
+    if peak > mem:
+        fail(f"{what}: peak device bytes {peak} exceed the {mem}-byte budget")
+    if launches < 5 * rep["n_segments"]:
+        fail(f"{what}: seg_scan launched {launches} times over {rep['n_segments']} segments")
+    if rep["overlap"] != (env["BFQ_EXT_OVERLAP"] == "1"):
+        fail(f"{what}: the report says overlap={rep['overlap']}")
+    res = {"env": env, "budget_bytes": mem, "seconds": seconds, "peak_device_bytes": peak,
+           "bases_per_s": BIG_READS * REAL_LEN / seconds,
+           "stages_s": {k: rep.get(k) for k in ("chunk_sorts_s", "merge_s", "merge_wait_s", "smooth_s",
+                                                "emit_s")},
+           "prefix_s": rep.get("merge_prefix_s"), "report": rep,
+           "rss_before_bytes": rss.start, "peak_rss_bytes": rss.peak,
+           "spilled": spilled, "spill_free_disk": free_disk,
+           "launches": launches, "launches_per_segment": launches / rep["n_segments"],
+           "changed": changed, "stats": stats, "digest": digest.hexdigest()}
+    if seg is not None:
+        res["segment_record_bytes"] = sum(t.nbytes for _, t in _flat_tensors(seg.record))
+        res["segment_vs_plain"] = seg.check(what)
+    phase("external_big", **{k: v for k, v in res.items() if k != "report"})
+    return res
+
+
+def merge_bench() -> dict:
+    """Phase 8 (e): tools/bench_extmerge_torch.py on the first MERGE_BENCH_READS
+    reads of phase 6's FASTQ: the port's merge threaded and on one thread,
+    with and without chunk LCPs (all equal), and the live merge's prefix
+    curve with one range per thread and with eight."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import bench_extmerge_torch
+
+    res = bench_extmerge_torch.run(os.path.join(WORK, "real.fastq"), MERGE_BENCH_READS, 16, 0, "cuda")
+    _names_card(res, "bench_extmerge_torch")
+    if not res["all_equal"] or set(res["live"]) != {"one_range_per_thread", "eight_ranges_per_thread"}:
+        fail(f"bench_extmerge_torch: {res}")
+    phase("external_merge_bench", **res)
     return res
 
 

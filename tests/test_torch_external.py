@@ -173,6 +173,43 @@ def test_external_matches_jax_external_example(monkeypatch, cfg, seg, rpc):
     assert gstats == wstats and gstats["num_clust"] > 0
 
 
+@needs_native
+@pytest.mark.parametrize(
+    "cfg,seg,rpc",
+    [
+        (SmoothConfig(), None, None),
+        (SmoothConfig(), 997, 17),
+        (SmoothConfig(mode=0), 1024, 33),
+        (SmoothConfig(mode=1), 1500, 29),
+        (SmoothConfig(mode=3, binning=True), 2048, 40),
+    ],
+)
+def test_overlap_matches_serial_and_jax_external_example(monkeypatch, cfg, seg, rpc):
+    """The default route smooths the merged prefix while the merge runs; its
+    outputs and stats equal the serial route's (BFQ_EXT_OVERLAP=0) and the
+    JAX function's, on the five parametrisations above."""
+    batch = read_fastq(golden_path("example.in.fastq"))
+    monkeypatch.delenv("BFQ_EXT_OVERLAP", raising=False)
+    on_rep = {}
+    on, on_stats = smooth_fastq_external(batch, cfg, device="cpu", _seg_len=seg, _reads_per_chunk=rpc,
+                                         report=on_rep)
+    monkeypatch.setenv("BFQ_EXT_OVERLAP", "0")
+    off_rep = {}
+    off, off_stats = smooth_fastq_external(batch, cfg, device="cpu", _seg_len=seg,
+                                           _reads_per_chunk=rpc, report=off_rep)
+    assert on_rep["overlap"] and not off_rep["overlap"]
+    assert on_rep["merge_wait_s"] >= 0 and set(on_rep["merge_prefix_s"]) == {"0.25", "0.5", "0.75", "1.0"}
+    assert "merge_wait_s" not in off_rep
+    if seg is None:
+        seg, rpc = 1 << 16, batch.num_reads  # the single chunk and segment, as above
+    want, wstats = jax_external(batch, cfg, _seg_len=seg, _reads_per_chunk=rpc)
+    for got in (on, off):
+        assert np.array_equal(got.lengths, want.lengths)
+        assert np.array_equal(got.seqs, np.asarray(want.seqs))
+        assert np.array_equal(got.quals, np.asarray(want.quals))
+    assert on_stats == off_stats == wstats
+
+
 class _CountingScans(LocalScanOps):
     def __init__(self):
         self.calls = 0

@@ -133,3 +133,116 @@ def test_cpu_run_launches_no_kernel_and_needs_native(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         smooth_fastq_external(batch, SmoothConfig())
+
+
+@pytest.mark.parametrize("overlap", ["1", "0"])
+def test_spill_out_path_overlap_on_and_off_match_jax(example_jax, tmp_path, monkeypatch, overlap):
+    """Spill files and a streamed out_path, with the merge overlapped and
+    serial: both give the JAX serial route's bytes and stats."""
+    batch, want, wstats = example_jax
+    monkeypatch.setenv("BFQ_EXT_OVERLAP", overlap)
+    rep = {}
+    out_fq = str(tmp_path / "sp.fq")
+    got, gstats = smooth_fastq_external(batch, SmoothConfig(), device="cpu", _seg_len=1500,
+                                        _reads_per_chunk=17, spill=True, out_path=out_fq, report=rep)
+    _assert_same(got, gstats, want, wstats)
+    with open(out_fq, "rb") as f:
+        assert f.read() == format_fastq(want)
+    assert rep["overlap"] == (overlap == "1")
+
+
+@pytest.mark.parametrize("overlap", ["1", "0"])
+def test_sa64_overlap_on_and_off_match_jax(example_jax, monkeypatch, overlap):
+    batch, want, wstats = example_jax
+    monkeypatch.setenv("BFQ_EXT_SA64", "1")
+    monkeypatch.setenv("BFQ_EXT_OVERLAP", overlap)
+    got, gstats = smooth_fastq_external(batch, SmoothConfig(), device="cpu", _seg_len=1500,
+                                        _reads_per_chunk=17, spill=True)
+    _assert_same(got, gstats, want, wstats)
+
+
+@pytest.mark.parametrize("threads,seg", [("1", 257), ("2", 401), ("8", 1024)])
+def test_tiny_segments_wait_on_a_multi_range_prefix(example_jax, monkeypatch, threads, seg):
+    """Tiny segments over a merge of several ranges: before each segment the
+    smoother waits until the merged prefix covers the segment and its halo,
+    and the result is the JAX serial route's (whose segment size does not
+    change its output)."""
+    from bfqzip_tpu_torch import external
+
+    batch, want, wstats = example_jax
+    monkeypatch.setenv("BFQ_EXT_THREADS", threads)
+    monkeypatch.delenv("BFQ_EXT_OVERLAP", raising=False)
+    waits, wait = [], external._Merge.wait
+
+    def recording(self, pos):
+        wait(self, pos)
+        waits.append((pos, self.handle.merged_prefix(), self.handle.total))
+
+    monkeypatch.setattr(external._Merge, "wait", recording)
+    rep = {}
+    got, gstats = smooth_fastq_external(batch, SmoothConfig(), device="cpu", _seg_len=seg,
+                                        _reads_per_chunk=17, report=rep)
+    _assert_same(got, gstats, want, wstats)
+    assert rep["n_segments"] == len(waits) > 5
+    halo = SmoothConfig().min_cluster + 4
+    for s, (pos, prefix, total) in enumerate(waits):
+        assert pos == min((s + 1) * seg + halo, total)
+        assert prefix >= pos
+
+
+def test_smoother_error_joins_the_merge_and_closes_the_spill(monkeypatch, tmp_path):
+    """A stage that raises while the merge runs: the error reaches the
+    caller, the merge thread has ended, and the spill directory is gone."""
+    from bfqzip_tpu_torch import external
+
+    monkeypatch.setenv("BFQ_SPILL_DIR", str(tmp_path))
+    monkeypatch.setenv("BFQ_EXT_THREADS", "1")
+    handles, start = [], native.ext_merge_async
+
+    def capture(*args, **kwargs):
+        handles.append(start(*args, **kwargs))
+        return handles[-1]
+
+    def broken(*args, **kwargs):
+        raise ValueError("smoother failed")
+
+    monkeypatch.setattr(native, "ext_merge_async", capture)
+    monkeypatch.setattr(external, "_part1_segment", broken)
+    batch = read_fastq(golden_path("example.in.fastq"), with_headers=False)
+    with pytest.raises(ValueError, match="smoother failed"):
+        smooth_fastq_external(batch, SmoothConfig(), device="cpu", _seg_len=257, _reads_per_chunk=17,
+                              spill=True)
+    assert len(handles) == 1 and handles[0].finished(0)
+    assert handles[0].join() == handles[0].total
+    assert list(tmp_path.iterdir()) == []
+
+
+def test_merge_error_raises_in_the_caller(monkeypatch, tmp_path):
+    """A merge that fails (here: a progress step that is no power of two,
+    rc -6) raises in the caller's thread, and the spill is closed."""
+    monkeypatch.setenv("BFQ_SPILL_DIR", str(tmp_path))
+    start = native.ext_merge_async
+    monkeypatch.setattr(native, "ext_merge_async", lambda *a, **k: start(*a, **k, step=3))
+    batch = read_fastq(golden_path("example.in.fastq"), with_headers=False)
+    with pytest.raises(RuntimeError, match="rc=-6"):
+        smooth_fastq_external(batch, SmoothConfig(), device="cpu", _seg_len=1500, _reads_per_chunk=17,
+                              spill=True)
+    assert list(tmp_path.iterdir()) == []
+
+
+def test_spill_projection_counts_the_packed_output(monkeypatch, tmp_path):
+    """The up-front disk check counts 21 B per padded position (19 for the
+    merge and 2 for the packed output): a disk with 20 B/pos free falls
+    back to host arrays, one with 21 keeps the spill files."""
+    import collections
+    import shutil
+
+    from bfqzip_tpu_torch import external
+    from bfqzip_tpu_torch.io.spill import Spill
+
+    usage = collections.namedtuple("usage", "total used free")
+    n_pad = 1000
+    for per_pos, spills in ((20, False), (21, True)):
+        monkeypatch.setattr(shutil, "disk_usage", lambda _, f=per_pos * n_pad: usage(0, 0, f))
+        sp, own = external._resolve_spill(Spill(dir=str(tmp_path)), n_pad)
+        assert (sp is not None) == spills and not own

@@ -65,7 +65,7 @@ def test_every_module_imports_with_jax_blocked():
 
 
 TOOLS = ("profile_stages_torch.py", "profile_build_torch.py", "profile_smooth_torch.py",
-         "run_ext10m_torch.py")
+         "run_ext10m_torch.py", "bench_extmerge_torch.py")
 
 
 def test_tools_import_with_jax_blocked():
