@@ -157,14 +157,16 @@ def _pack(seqs: torch.Tensor, lens: torch.Tensor) -> list:
     return words
 
 
-def _sort_lsd(words: list) -> tuple:
+def _sort_lsd(words: list, stable: bool = True) -> tuple:
     """(sa, sorted keys): LSD stable sorts from the last word to the first,
-    starting from position order; the last pass leaves word 0 sorted."""
+    starting from position order; the last pass leaves word 0 sorted.
+    stable=False runs the same passes unstably, which tools/*_sort_torch.py
+    time against the build's: the suffix order needs stable passes."""
     n_words = len(words)
     sa = torch.arange(words[0].shape[0], dtype=torch.int64, device=words[0].device)
     for w in range(n_words - 1, -1, -1):
         key = words[w] if w == n_words - 1 else words[w][sa]
-        sorted_key, order = torch.sort(key, stable=True)
+        sorted_key, order = torch.sort(key, stable=stable)
         sa = sa[order]
     return sa, [sorted_key] + [words[w][sa] for w in range(1, n_words)]
 

@@ -1,10 +1,11 @@
 """ctypes bindings for the native C++ runtime.
 
-The port's copy of the entry points of bfqzip_tpu/utils/native.py that the
-port calls.  FASTQ parsing and the rANS and BQZC codecs load the shared
-library that `make -C native` builds in the repository's native/ directory
-(at first use, if it is missing); parsing and the rANS coder have numpy
-fallbacks, so the package works without it, and BQZC needs it.  The
+The port's copy of the codec and FASTQ bindings of
+bfqzip_tpu/utils/native.py, with the same signatures.  FASTQ parsing and
+formatting and the rANS and BQZC codecs load the shared library that
+`make -C native` builds in the repository's native/ directory (at first
+use, if it is missing); parsing and the rANS coder have numpy fallbacks, so
+the package works without it, and BQZC needs it.  The
 out-of-core k-way merge is the port's own, csrc/extmerge.cpp, built by
 utils/cuda_build with the host compiler at first use: ext_merge runs it
 while the caller waits, ext_merge_async on a thread whose merged prefix a
@@ -64,6 +65,8 @@ def _find_lib():
         lib.fastq_scan.argtypes = [vp, i64, vp, vp]
         lib.fastq_fill.restype = i32
         lib.fastq_fill.argtypes = [vp, i64, vp, i64, vp, vp, vp, vp, vp]
+        lib.fastq_format.restype = i64
+        lib.fastq_format.argtypes = [vp, vp, vp, i64, i64, vp, vp, vp, vp, vp]
         lib.rans_encode.restype = i64
         lib.rans_encode.argtypes = [vp, i64, i32, i32, vp, i64]
         lib.rans_decode.restype = i64
@@ -111,6 +114,38 @@ def fastq_parse(data: bytes, code_map: np.ndarray):
     return seqs, quals, lengths, hoff, hlen
 
 
+def fastq_format(seqs, quals, lengths, decode_map, headers_blob=None, hoff=None,
+                 hlen=None) -> Optional[bytes]:
+    """FASTQ bytes of padded [N, L] reads (native/fastq_codec.cpp): code ->
+    ASCII through decode_map; each header is headers_blob[hoff:hoff + hlen]
+    (the offsets fastq_parse returns), or a bare '@' without headers_blob.
+    Returns None if the native library is unavailable."""
+    lib = _find_lib()
+    if lib is None:
+        return None
+    n, w = seqs.shape
+    lengths64 = lengths.astype(np.int64)
+    hsize = int(hlen.sum()) if headers_blob is not None else n  # bare '@'
+    total = int(hsize + n * 3 + 2 * lengths64.sum() + 3 * n)
+    out = np.zeros(total + 16, np.uint8)
+    hb = np.frombuffer(headers_blob, np.uint8) if headers_blob is not None else None
+    # each converted array is named, so it lives until the call returns
+    seqs_c, quals_c = np.ascontiguousarray(seqs), np.ascontiguousarray(quals)
+    lens32 = np.ascontiguousarray(lengths, np.int32)
+    hoff64 = np.ascontiguousarray(hoff, np.int64) if hoff is not None else None
+    hlen64 = np.ascontiguousarray(hlen, np.int64) if hlen is not None else None
+    written = lib.fastq_format(
+        _ptr(seqs_c), _ptr(quals_c), _ptr(lens32), n, w, _ptr(decode_map),
+        _ptr(hb) if hb is not None else None,
+        _ptr(hoff64) if hoff64 is not None else None,
+        _ptr(hlen64) if hlen64 is not None else None,
+        _ptr(out),
+    )
+    if written < 0:
+        raise RuntimeError(f"native fastq_format rc={written}")
+    return out[:written].tobytes()
+
+
 def rans_encode(data: bytes, spec_order: int, lanes: int) -> Optional[bytes]:
     lib = _find_lib()
     if lib is None:
@@ -143,23 +178,42 @@ def cm_available() -> bool:
     return _find_lib() is not None
 
 
-def cm_encode(data: bytes, pos_reset: int = -1) -> Optional[bytes]:
+def cm_encode(
+    data: bytes, block_size: int = 0, threads: int = 0, pos_reset: int = -1,
+    profile: Optional[str] = None,
+) -> Optional[bytes]:
     """Adaptive context-model coder (native/cm_codec.cpp, magic BQZC), in
-    its blocked v3 container: 16M-symbol blocks coded on a thread pool
-    (BFQ_CM_THREADS overrides the count; BFQ_CM_PROFILE picks 'fast' or
-    'max', default 'max').  pos_reset >= 0 enables the positional context
-    model with that byte restarting the in-record position counter (pass
-    ord('\\n') for line-structured streams like .fq.qs)."""
+    its blocked container: independent per-block models, encoded and decoded
+    on a thread pool.  block_size <= 0 picks the 16M-symbol default, threads
+    <= 0 one per core (BFQ_CM_THREADS overrides).  pos_reset >= 0 enables
+    the positional context model with that byte restarting the in-record
+    position counter (pass ord('\\n') for line-structured streams like
+    .fq.qs).  profile ('fast' | 'max'; None: BFQ_CM_PROFILE, else 'max')
+    picks the speed/ratio point: 'fast' drops the reverse-complement and
+    high-order models for a faster decode at a ratio cost."""
     lib = _find_lib()
     if lib is None:
         return None
+    if profile is not None:
+        if profile not in ("fast", "max"):
+            raise ValueError(f"profile must be 'fast' or 'max', got {profile!r}")
+        old = os.environ.get("BFQ_CM_PROFILE")
+        os.environ["BFQ_CM_PROFILE"] = profile
+        try:
+            return cm_encode(data, block_size, threads, pos_reset)
+        finally:
+            if old is None:
+                os.environ.pop("BFQ_CM_PROFILE", None)
+            else:
+                os.environ["BFQ_CM_PROFILE"] = old
     buf = np.frombuffer(data, np.uint8)
-    block = 16 * 1024 * 1024
-    # the container carries a 4-byte length per block
+    # the container carries a 4-byte length per block: the capacity follows
+    # the actual block count, so a tiny block_size cannot overflow it
+    block = block_size if block_size > 0 else 16 * 1024 * 1024
     cap = len(data) + len(data) // 2 + (1 << 16) + 4 * (max(len(data) + block - 1, 1) // block) + 64
     out = np.zeros(cap, np.uint8)
-    size = lib.cm_encode_blocked(_ptr(buf), len(data), _ptr(out), cap, ctypes.c_int64(0),
-                                 ctypes.c_int(0), ctypes.c_int(pos_reset))
+    size = lib.cm_encode_blocked(_ptr(buf), len(data), _ptr(out), cap, ctypes.c_int64(block_size),
+                                 ctypes.c_int(threads), ctypes.c_int(pos_reset))
     if size < 0:
         raise RuntimeError(f"native cm_encode rc={size}")
     return out[:size].tobytes()

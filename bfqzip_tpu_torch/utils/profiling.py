@@ -15,8 +15,9 @@ bfq_int.cpp:976-1001) and wall-clock timers around every step
     idle share of a marked region, and time per device kernel;
   * `best_ms`, the best of a few timed calls after a warm-up (CUDA events
     on a card), `device_info`, the card's name, count and power limit
-    that every measurement is printed beside, and `RssSampler`, the peak
-    resident set of a stretch of work.
+    that every measurement is printed beside, `host_info`, the host's CPU
+    model and cores beside host-side measurements, and `RssSampler`, the
+    peak resident set of a stretch of work.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import platform
 import subprocess
 import threading
 import time
@@ -65,6 +67,27 @@ def device_info(device="cuda") -> dict:
     ).stdout.strip()
     return {"type": "cuda", "name": torch.cuda.get_device_name(dev), "count": torch.cuda.device_count(),
             "power_limit": smi.rsplit(",", 1)[-1].strip()}
+
+
+def host_info() -> dict:
+    """The host's CPU model, its core count and the cores this process may
+    use, which host-side measurements are printed beside.  The model is
+    /proc/cpuinfo's "model name", or its vendor, family and model numbers
+    where a virtual machine reports the name as unknown, or
+    platform.processor() without /proc/cpuinfo."""
+    info = {}
+    if os.path.exists("/proc/cpuinfo"):
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break  # the first processor's fields
+                key, _, value = line.partition(":")
+                info[key.strip()] = value.strip()
+    model = info.get("model name")
+    if model in (None, "", "unknown") and "cpu family" in info:
+        model = f"{info.get('vendor_id', '')} family {info['cpu family']} model {info.get('model')}".strip()
+    return {"cpu_model": model or platform.processor() or None, "cpu_count": os.cpu_count(),
+            "affinity": len(os.sched_getaffinity(0))}
 
 
 class RssSampler:

@@ -115,6 +115,22 @@ Phases, each printed on its own line; the first failure exits non-zero:
                   encode_dna_stream and decode_dna_stream on the card:
                   the input back, a container equal to the CPU's, MB/s of
                   each direction; then the phase's seconds
+ 13. tools        the seven microbenchmark and codec tools, each in a
+                  subprocess at its default size: bench_prims_torch.py (its
+                  blocked-prefix and expansion checks),
+                  bench_prims2_torch.py (each scan candidate through
+                  csrc/seg_scan.cu equal to its plain version, the
+                  two-level scheme equal to the one-level sum, launches
+                  counted), microbench_sort_torch.py,
+                  exp_unstable_sort_torch.py (the invert sorts and the
+                  scatter agree), exp_overlap_torch.py (each chunk's reads
+                  equal smooth_fastq's, 5 launches per stage triple),
+                  bench_cm_torch.py (one timed decode) and
+                  bench_decode_scaling_torch.py at 50K reads (every decode
+                  byte-equal; 1-8 threads measured where the host has the
+                  cores); each tool names the card; unstable-sort
+                  identities are printed, not gated; then the phase's
+                  seconds
 Then a JSON line describing each kernel (its times are the sums over phase
 5's launches), the card's name and power limit, and last the result line
 {"ok": true, "device": {...}}.  Imports nothing of jax or of the JAX package
@@ -171,6 +187,12 @@ SHARD_RETRY_READS, SHARD_RETRY_FACTOR = 50_000, 0.5  # (b) a capacity that overf
 PROXY_READS, PROXY_LEN, PROXY_GENOME, PROXY_SNPS = 2_000_000, 101, 6_000_000, 2_500
 # phase 12: the reads of the FASTQ that tools/run_ext10m_torch.py smooths under 1 GiB
 EXT_TOOL_READS = 500_000
+# phase 13: (arguments, environment) of the tools run at other than their
+# defaults: on the card's host the decode scaling took 57.5 s at its 100K
+# reads (half keeps 20 blocks of 256K per stream), and bench_cm's decodes
+# 4 x 2.2-3.9 s per stream, so it times one after its warm-up
+TOOL_RUN = {"bench_cm": (["--reps", "1"], None),
+            "bench_decode_scaling": ([], {"BENCH_READS": "50000"})}
 
 
 def phase(name: str, **fields) -> None:
@@ -1733,6 +1755,61 @@ def entry_points(batch) -> dict:
     return res
 
 
+def tools_phase() -> dict:
+    """Phase 13: the seven microbenchmark and codec tools on the card, each
+    through _tool_json at its default size, with their gates; the seg_scan
+    launches of the two tools that run the kernel."""
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the tools run in subprocesses and need the card's memory
+    res = {}
+    for name in ("bench_prims", "bench_prims2", "microbench_sort", "exp_unstable_sort", "exp_overlap",
+                 "bench_cm", "bench_decode_scaling"):
+        t = time.perf_counter()
+        args, env = TOOL_RUN.get(name, ([], None))
+        out = _tool_json([f"tools/{name}_torch.py", *args], env=env)
+        _names_card(out, f"{name}_torch")
+        out["tool_seconds"] = time.perf_counter() - t
+        phase(f"tools_{name}", **out)
+        res[name] = out
+
+    prims, prims2 = res["bench_prims"], res["bench_prims2"]
+    if not all(prims["checks"].values()):
+        fail(f"bench_prims_torch: a check failed: {prims['checks']}")
+    for label, row in prims2["candidates"].items():
+        if row["equal"] is not True:
+            fail(f"bench_prims2_torch: {label} through the kernel differs from the plain version")
+    if prims2["candidates"]["two-level(B=8) seg-sum [n] i32"]["plain_equal"] is not True:
+        fail("bench_prims2_torch: the two-level sum differs from the one-level one")
+    unstable, overlap = res["exp_unstable_sort"], res["exp_overlap"]
+    if not (unstable["invert_identical"] and unstable["scatter_identical"]):
+        fail("exp_unstable_sort_torch: the invert's sorts or its scatter disagree")
+    if not overlap["chunks_equal"]:
+        fail("exp_overlap_torch: a chunk's reads differ from smooth_fastq's")
+    if overlap["launches_per_stage_triple"] != [5]:
+        fail(f"exp_overlap_torch: {overlap['launches_per_stage_triple']} seg_scan launches per "
+             "stage triple, expected 5")
+    launches = {"bench_prims2_torch": prims2["seg_scan_launches"],
+                "exp_overlap_torch": overlap["seg_scan_launches"]}
+    if not all(n > 0 for n in launches.values()):
+        fail(f"a scan tool launched no seg_scan: {launches}")
+    if not (res["bench_cm"]["dna"]["byte_equal"] and res["bench_cm"]["qs"]["byte_equal"]):
+        fail("bench_cm_torch: a decode differs")
+    cores = res["bench_decode_scaling"]["host"]["affinity"]
+    want = {str(k) for k in (1, 2, 4, 8) if k <= max(cores, 2)}
+    for s in res["bench_decode_scaling"]["streams"]:
+        if not s["byte_equal"]:
+            fail(f"bench_decode_scaling_torch: a {s['stream']} decode differs")
+        if set(s["measured_s"]) != want:
+            fail(f"bench_decode_scaling_torch: measured {sorted(s['measured_s'])} threads on "
+                 f"{cores} cores, expected {sorted(want)}")
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    phase("tools", seconds=res["seconds"], launches=launches)
+    return res
+
+
 def native_make():
     """Start `make -B -C native` (the host codec library) in the background.
     -B rebuilds a copy left in the tree: it is built with -march=native and
@@ -1790,6 +1867,7 @@ def main(argv) -> int:
     prof = profile_phase(batch)
     entry = entry_points(batch)
     del batch
+    tools = tools_phase()
     for package in ("jax", "bfqzip_tpu"):
         if package in sys.modules:
             fail(f"{package} was imported")
@@ -1800,7 +1878,9 @@ def main(argv) -> int:
         "replaces": "bfqzip_tpu/ops/pallas_scan.py:89",
         "launches": (real["launches"] + cli["launches"] + long["launches"] + ext["launches"]
                      + sum(world1["launches_per_call"]) + proxy["launches"] + prof["launches"]
-                     + entry["launches"]),
+                     + entry["launches"] + sum(tools["launches"].values())),
+        # phase 13's launches, from the two scan tools' own lines
+        "tool_launches": tools["launches"],
         # seg_scan launches of one sharded call: world 1 in this process, and
         # each of the gloo ranks sharing the card (flat body)
         "sharded_launches_per_call": {"world1": world1["launches_per_call"],

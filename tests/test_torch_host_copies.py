@@ -154,6 +154,87 @@ def test_read_fastq_spill_matches_jax(tmp_path):
         jsp.close()
 
 
+# ---- native bindings: BQZC encode and the FASTQ formatter ----
+
+def _needs_native():
+    if not (native.available() and jax_native.available()):
+        pytest.skip("native library not built")
+
+
+def _matchy_bytes(n=600_000, seed=0):
+    """tests/test_native.py's repeat-rich stream."""
+    rng = np.random.default_rng(seed)
+    frag = rng.integers(65, 69, 1000, dtype=np.uint8)
+    parts = [frag[rng.integers(0, 900):][: rng.integers(50, 100)] for _ in range(n // 60)]
+    return bytes(np.concatenate(parts)[:n])
+
+
+def _qs_stream():
+    """The quality lines of a golden FASTQ, newline-ended: a QS-like stream."""
+    with open(os.path.join(GOLDEN, "synth_var.in.fastq"), "rb") as f:
+        return b"\n".join(f.read().split(b"\n")[3::4]) + b"\n"
+
+
+def _one_block():
+    data = _matchy_bytes()
+    return data, dict(block_size=len(data) + 1)
+
+
+# case -> (stream, cm_encode keywords)
+CM_CASES = {
+    "blocks_100k_threads_2": lambda: (_matchy_bytes(), dict(block_size=100_000, threads=2)),
+    "one_block": _one_block,
+    "threads_2": lambda: (_matchy_bytes(200_000, seed=1), dict(threads=2)),
+    "profile_fast": lambda: (_matchy_bytes(200_000), dict(threads=1, profile="fast")),
+    "profile_max": lambda: (_matchy_bytes(200_000), dict(threads=1, profile="max")),
+    "qs_pos_reset": lambda: (_qs_stream(), dict(pos_reset=ord("\n"))),
+}
+
+
+@pytest.mark.parametrize("case", list(CM_CASES))
+def test_cm_encode_matches_jax(case):
+    _needs_native()
+    data, kwargs = CM_CASES[case]()
+    before = os.environ.get("BFQ_CM_PROFILE")
+    blob = native.cm_encode(data, **kwargs)
+    assert os.environ.get("BFQ_CM_PROFILE") == before  # the profile is set for the call only
+    assert blob == jax_native.cm_encode(data, **kwargs)
+    assert bytes(native.cm_decode(blob)) == data
+
+
+def test_cm_encode_profile_restores_the_environment(monkeypatch):
+    _needs_native()
+    monkeypatch.setenv("BFQ_CM_PROFILE", "max")
+    data = _matchy_bytes(50_000)
+    fast = native.cm_encode(data, threads=1, profile="fast")
+    assert os.environ["BFQ_CM_PROFILE"] == "max"
+    assert fast[6] & 2  # the container's flags mark the fast profile
+    assert fast != native.cm_encode(data, threads=1)
+
+
+def test_cm_encode_rejects_an_unknown_profile_alike():
+    _needs_native()
+    for mod in (native, jax_native):
+        with pytest.raises(ValueError, match="profile"):
+            mod.cm_encode(b"ACGT" * 100, profile="bad")
+
+
+@pytest.mark.parametrize("headers", [True, False])
+@pytest.mark.parametrize("name", ["example.in.fastq", "synth_var.in.fastq"])
+def test_fastq_format_matches_jax_and_format_fastq(name, headers):
+    _needs_native()
+    with open(os.path.join(GOLDEN, name), "rb") as f:
+        data = f.read()
+    seqs, quals, lengths, hoff, hlen = native.fastq_parse(data, alphabet._ENCODE)
+    hdr = (data, hoff, hlen) if headers else ()
+    got = native.fastq_format(seqs, quals, lengths, alphabet._DECODE, *hdr)
+    assert got == jax_native.fastq_format(seqs, quals, lengths, jax_alphabet._DECODE, *hdr)
+    batch = fastq.read_fastq(os.path.join(GOLDEN, name))
+    assert got == (fastq.format_fastq(batch) if headers else fastq.format_fastq(batch, headers=None))
+    if headers:
+        assert got == data
+
+
 # ---- reorder ----
 
 @pytest.mark.parametrize("mode", [1, 2])

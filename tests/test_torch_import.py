@@ -65,7 +65,9 @@ def test_every_module_imports_with_jax_blocked():
 
 
 TOOLS = ("profile_stages_torch.py", "profile_build_torch.py", "profile_smooth_torch.py",
-         "run_ext10m_torch.py", "bench_extmerge_torch.py")
+         "run_ext10m_torch.py", "bench_extmerge_torch.py", "bench_prims_torch.py",
+         "bench_prims2_torch.py", "microbench_sort_torch.py", "exp_unstable_sort_torch.py",
+         "exp_overlap_torch.py", "bench_cm_torch.py", "bench_decode_scaling_torch.py")
 
 
 def test_tools_import_with_jax_blocked():
