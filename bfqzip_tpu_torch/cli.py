@@ -72,6 +72,14 @@ def build_parser():
 
 
 def main(argv=None) -> int:
+    """One CLI run: the span `cli.main`, the root of the run's spans."""
+    from bfqzip_tpu_torch.utils.profiling import span
+
+    with span("cli.main"):
+        return _main(argv)
+
+
+def _main(argv) -> int:
     args = build_parser().parse_args(argv)
     device = "cpu" if args.cpu else "cuda"
 

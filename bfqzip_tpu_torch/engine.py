@@ -19,6 +19,7 @@ from bfqzip_tpu_torch.convert import batch_to_tensors
 from bfqzip_tpu_torch.ops.invert import InvertOut, invert, invert_via_sa
 from bfqzip_tpu_torch.ops.smooth import lf_and_pre, smooth
 from bfqzip_tpu_torch.ops.suffix import EbwtDevice, build_ebwt
+from bfqzip_tpu_torch.utils.profiling import resolve_device, span
 
 
 def pre_of(ebwt: EbwtDevice) -> torch.Tensor:
@@ -39,9 +40,10 @@ def smooth_step(
     n_reads, width = seqs.shape
     ebwt = build_ebwt(seqs, quals, lengths)
     out = smooth(ebwt, cfg, pre=pre_of(ebwt))
-    inv = invert_via_sa(
-        ebwt.sa, ebwt.bwt, out.bwt_sub, out.qs, ebwt.n, n_reads, width, binning=cfg.binning
-    )
+    with span("invert.invert_via_sa"):
+        inv = invert_via_sa(
+            ebwt.sa, ebwt.bwt, out.bwt_sub, out.qs, ebwt.n, n_reads, width, binning=cfg.binning
+        )
     return inv, out.stats
 
 
@@ -53,19 +55,14 @@ def smooth_arrays_step(
     n a 0-d int32 tensor on their device).  They carry no suffix array, so
     LF is computed once: pre = bwt[LF] for the smoother, and the LF walk
     inverts."""
-    lf, pre = lf_and_pre(bwt, n)
-    ebwt = EbwtDevice(bwt=bwt, qs=qs, lcp=lcp, sa=None, text=None, n=n)
-    out = smooth(ebwt, cfg, pre=pre)
-    inv = invert(bwt, out.bwt_sub, out.qs, lf, n_reads, width, binning=cfg.binning)
+    with span("engine.smooth_arrays_step"):
+        with span("rank.lf_and_pre"):
+            lf, pre = lf_and_pre(bwt, n)
+        ebwt = EbwtDevice(bwt=bwt, qs=qs, lcp=lcp, sa=None, text=None, n=n)
+        out = smooth(ebwt, cfg, pre=pre)
+        with span("invert.invert"):
+            inv = invert(bwt, out.bwt_sub, out.qs, lf, n_reads, width, binning=cfg.binning)
     return inv, out.bwt_sub, out.qs, out.stats
-
-
-def resolve_device(device) -> torch.device:
-    """The device asked for; a CUDA device without a card raises."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is False")
-    return dev
 
 
 def smooth_fastq(
@@ -74,11 +71,16 @@ def smooth_fastq(
     """Host wrapper: numpy ReadBatch in, smoothed numpy ReadBatch out."""
     cfg = cfg or SmoothConfig()
     dev = resolve_device(device)
-    inv, stats = smooth_step(*batch_to_tensors(batch, dev), cfg)
-    out = ReadBatch(
-        seqs=inv.seqs.cpu().numpy(),
-        quals=inv.quals.cpu().numpy(),
-        lengths=inv.lengths.cpu().numpy(),
-        headers=batch.headers,
-    )
-    return out, {k: int(v) for k, v in stats.items()}
+    with span("engine.smooth_fastq"):
+        with span("engine.upload"):
+            tensors = batch_to_tensors(batch, dev)
+        inv, stats = smooth_step(*tensors, cfg)
+        del tensors
+        with span("engine.download"):
+            out = ReadBatch(
+                seqs=inv.seqs.cpu().numpy(),
+                quals=inv.quals.cpu().numpy(),
+                lengths=inv.lengths.cpu().numpy(),
+                headers=batch.headers,
+            )
+        return out, {k: int(v) for k, v in stats.items()}

@@ -27,6 +27,7 @@ from bfqzip_tpu_torch.config import SmoothConfig
 from bfqzip_tpu_torch.ops.rank import lf_array
 from bfqzip_tpu_torch.ops.scan import LOCAL_OPS
 from bfqzip_tpu_torch.ops.suffix import EbwtDevice
+from bfqzip_tpu_torch.utils.profiling import span
 
 # reference ord order: index o -> alphabet code
 _ORD_CODES = (alphabet.A, alphabet.C, alphabet.G, alphabet.T, alphabet.N)
@@ -111,12 +112,16 @@ def smooth(ebwt: EbwtDevice, cfg: SmoothConfig, pre: torch.Tensor | None = None,
     lf_and_pre."""
     ops = ops or LOCAL_OPS
     bwt, qs, lcp, n = ebwt.bwt, ebwt.qs, ebwt.lcp, ebwt.n
-    if pre is None:
-        _, pre = lf_and_pre(bwt, n, ops)
-    word, close_mark, in_cluster, stats = cluster_words(bwt, qs, lcp, n, cfg, pre, ops)
-    w = broadcast_words(word, close_mark, ops)
-    bwt_sub, qs_out, modified, qs_smoothed = apply_words(bwt, qs, pre, w, in_cluster, cfg)
-    stats.update(change_counts(modified, qs_smoothed, ops))
+    with span("smooth.smooth"):
+        if pre is None:
+            _, pre = lf_and_pre(bwt, n, ops)
+        with span("smooth.cluster_words"):
+            word, close_mark, in_cluster, stats = cluster_words(bwt, qs, lcp, n, cfg, pre, ops)
+        with span("smooth.broadcast_words"):
+            w = broadcast_words(word, close_mark, ops)
+        with span("smooth.apply_words"):
+            bwt_sub, qs_out, modified, qs_smoothed = apply_words(bwt, qs, pre, w, in_cluster, cfg)
+        stats.update(change_counts(modified, qs_smoothed, ops))
     return SmoothOut(bwt_sub=bwt_sub, qs=qs_out, stats=stats)
 
 

@@ -36,6 +36,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from bfqzip_tpu_torch import alphabet
+from bfqzip_tpu_torch.utils.profiling import span
 
 PACK6 = 24  # base-6 digits per int64 key word
 FLAT_MAX_WINDOW = 324  # the JAX flat path's limit (PACK6 * MAX_FLAT_WORDS): width + 1 <= 324
@@ -72,9 +73,10 @@ def build_ebwt(seqs: torch.Tensor, quals: torch.Tensor, lengths: torch.Tensor) -
     Rows of length -1 are inert dummies (no terminator, no suffixes).  The
     doubling build leaves `pre` None.
     """
-    if build_route(seqs.shape[1]) == "doubling":
-        return _build_ebwt_doubling(seqs, quals, lengths)
-    return _build_ebwt_flat(seqs, quals, lengths)
+    with span("suffix.build_ebwt"):
+        if build_route(seqs.shape[1]) == "doubling":
+            return _build_ebwt_doubling(seqs, quals, lengths)
+        return _build_ebwt_flat(seqs, quals, lengths)
 
 
 def _pack_words(seqs: torch.Tensor, lens: torch.Tensor, wp: int, n_words: int) -> list:
@@ -207,11 +209,15 @@ def _build_ebwt_flat(seqs: torch.Tensor, quals: torch.Tensor, lengths: torch.Ten
     """The whole-window build in four steps: _pack, _sort_lsd, _post, _lcp."""
     wp = seqs.shape[1] + 1
     lens, n = _lens_and_n(lengths)
-    words = _pack(seqs, lens)
-    sa, skeys = _sort_lsd(words)
+    with span("suffix.pack"):
+        words = _pack(seqs, lens)
+    with span("suffix.sort_lsd"):
+        sa, skeys = _sort_lsd(words)
     del words
-    bwt, qs, pre, tflat, valid = _post(seqs, quals, lens, sa, n)
-    lcp = _lcp(skeys, sa, lens, wp, valid)
+    with span("suffix.post"):
+        bwt, qs, pre, tflat, valid = _post(seqs, quals, lens, sa, n)
+    with span("suffix.lcp"):
+        lcp = _lcp(skeys, sa, lens, wp, valid)
     return EbwtDevice(
         bwt=bwt, qs=qs, lcp=lcp, sa=sa.to(torch.int32), text=tflat, n=n, pre=pre
     )

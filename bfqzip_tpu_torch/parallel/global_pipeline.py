@@ -26,8 +26,8 @@ spawns `shards` ranks from one process.
 
 from __future__ import annotations
 
+import contextlib
 import tempfile
-import time
 from typing import Tuple
 
 import numpy as np
@@ -45,71 +45,66 @@ from bfqzip_tpu_torch.parallel.comm import Comm
 from bfqzip_tpu_torch.parallel.dist_scan import DistScanOps
 from bfqzip_tpu_torch.parallel.global_ebwt import (ATTEMPTS, Ctx, _sort_body, local_rows,
                                                    pad_reads_to_multiple)
+from bfqzip_tpu_torch.utils.profiling import span
 
 
-class _Stages:
-    """Stage milliseconds of one rank's body and, on CUDA, each stage's peak
-    device bytes, when a report is asked for (each mark then waits for the
-    device)."""
-
-    def __init__(self, report, device):
-        self.report, self.device = report, device
-        self.cuda = device.type == "cuda" and report is not None
-        if self.cuda:
-            torch.cuda.reset_peak_memory_stats(device)
-        self.t = time.perf_counter()
-
-    def mark(self, name: str):
-        if self.report is None:
-            return
-        if self.cuda:
-            torch.cuda.synchronize(self.device)
-            self.report[name + "_peak_bytes"] = torch.cuda.max_memory_allocated(self.device)
-            torch.cuda.reset_peak_memory_stats(self.device)
-        now = time.perf_counter()
-        self.report[name + "_ms"] = (now - self.t) * 1e3
-        self.t = now
+@contextlib.contextmanager
+def _stage(name: str, dev: torch.device, stages: dict | None):
+    """The span `sharded.<name>`.  With `stages` (a report was asked for)
+    the span is timed even where no span is recorded, and kept there as
+    `<name>_ms`; on CUDA the device's peak counter is reset on entry and
+    read on exit as `<name>_peak_bytes`, the allocator's own bookkeeping, so
+    nothing waits for the card."""
+    cuda = stages is not None and dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    with span("sharded." + name, timed=stages is not None) as sp:
+        yield
+    if stages is not None:
+        stages[name + "_ms"] = sp
+    if cuda:
+        stages[name + "_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
 
 
 def _pipeline_body(ctx: Ctx, n_reads, width, seqs_l, quals_l, lens_l, cfg: SmoothConfig, stages):
     m, n_pad, dev = ctx.m, ctx.n_pad, ctx.dev
     wp = width + 1
-    r = _sort_body(ctx, n_reads, width, seqs_l, quals_l, lens_l)
-    stages.mark("sort")
+    with _stage("sort", dev, stages):
+        r = _sort_body(ctx, n_reads, width, seqs_l, quals_l, lens_l)
 
     # ---- exact rebalance: sorted order as equal contiguous [m] slices ----
-    payloads = [(r.bwt, alphabet.SIGMA), (r.qs, 0), (r.lcp, 0), (r.sa, -1)]
-    if r.pre is not None:
-        (bwt_e, qs_e, lcp_e, sa_e, pre), ovf = ctx.rebalance(r.count, payloads + [(r.pre, 0)])
-    else:
-        (bwt_e, qs_e, lcp_e, sa_e), ovf = ctx.rebalance(r.count, payloads)
-        # predecessor symbols: text[(SA - 2) mod n_pad]
-        prev2 = torch.remainder(sa_e.to(torch.int64) - 2, n_pad)
-        tprev2, ovf_pre = ctx.global_gather(r.text, prev2, 0)
-        ovf = ovf + ovf_pre
-        pre = torch.where(tprev2 == 0, alphabet.TERM, tprev2 - 1).to(torch.uint8)
-    del r.bwt, r.qs, r.lcp, r.sa
-    stages.mark("rebalance")
+    with _stage("rebalance", dev, stages):
+        payloads = [(r.bwt, alphabet.SIGMA), (r.qs, 0), (r.lcp, 0), (r.sa, -1)]
+        if r.pre is not None:
+            (bwt_e, qs_e, lcp_e, sa_e, pre), ovf = ctx.rebalance(r.count, payloads + [(r.pre, 0)])
+        else:
+            (bwt_e, qs_e, lcp_e, sa_e), ovf = ctx.rebalance(r.count, payloads)
+            # predecessor symbols: text[(SA - 2) mod n_pad]
+            prev2 = torch.remainder(sa_e.to(torch.int64) - 2, n_pad)
+            tprev2, ovf_pre = ctx.global_gather(r.text, prev2, 0)
+            ovf = ovf + ovf_pre
+            pre = torch.where(tprev2 == 0, alphabet.TERM, tprev2 - 1).to(torch.uint8)
+        del r.bwt, r.qs, r.lcp, r.sa
 
     # ---- cluster smoothing on the distributed scan ops ----
-    ops = DistScanOps(ctx.comm)
-    ebwt = EbwtDevice(bwt=bwt_e, qs=qs_e, lcp=lcp_e, sa=sa_e, text=r.text, n=r.n)
-    out = smooth(ebwt, cfg, pre=pre, ops=ops)
-    del ebwt, qs_e, lcp_e, pre
-    stages.mark("smooth")
+    with _stage("smooth", dev, stages):
+        ops = DistScanOps(ctx.comm)
+        ebwt = EbwtDevice(bwt=bwt_e, qs=qs_e, lcp=lcp_e, sa=sa_e, text=r.text, n=r.n)
+        out = smooth(ebwt, cfg, pre=pre, ops=ops)
+        del ebwt, qs_e, lcp_e, pre
 
     # ---- inversion: one routed scatter back to read coordinates ----
-    qs_fin = illumina_bin(out.qs) if cfg.binning else out.qs
-    is_char = (bwt_e != alphabet.TERM) & (ops.iota(m, dev) < r.n)
-    packed = torch.where(is_char, (qs_fin.to(torch.int32) << 8) | out.bwt_sub.to(torch.int32), 0)
-    target = torch.remainder(sa_e.to(torch.int64) - 1, n_pad)
-    grid, ovf_sc = ctx.global_scatter(packed, target, 0)
-    grid = grid.reshape(m // wp, wp)[:, :width]
-    seqs_o = (grid & 0xFF).to(torch.uint8)
-    quals_o = ((grid >> 8) & 0xFF).to(torch.uint8)
-    lengths_o = (seqs_o != 0).sum(dim=1, dtype=torch.int32)
-    overflow = r.overflow + ctx.comm.psum(ovf + ovf_sc)
-    stages.mark("scatter")
+    with _stage("scatter", dev, stages):
+        qs_fin = illumina_bin(out.qs) if cfg.binning else out.qs
+        is_char = (bwt_e != alphabet.TERM) & (ops.iota(m, dev) < r.n)
+        packed = torch.where(is_char, (qs_fin.to(torch.int32) << 8) | out.bwt_sub.to(torch.int32), 0)
+        target = torch.remainder(sa_e.to(torch.int64) - 1, n_pad)
+        grid, ovf_sc = ctx.global_scatter(packed, target, 0)
+        grid = grid.reshape(m // wp, wp)[:, :width]
+        seqs_o = (grid & 0xFF).to(torch.uint8)
+        quals_o = ((grid >> 8) & 0xFF).to(torch.uint8)
+        lengths_o = (seqs_o != 0).sum(dim=1, dtype=torch.int32)
+        overflow = r.overflow + ctx.comm.psum(ovf + ovf_sc)
     return seqs_o, quals_o, lengths_o, out.stats, overflow
 
 
@@ -123,7 +118,11 @@ def smooth_rank(seqs_l, quals_l, lens_l, comm: Comm, cfg: SmoothConfig,
     `report` dict, each attempt's capacity and overflow, and the last
     attempt's stage milliseconds, collective bytes, host-staged bytes and
     seg_scan launches are written there; on CUDA also each stage's peak
-    device bytes (the device's peak statistics are reset at each stage)."""
+    device bytes (the device's peak statistics are reset at each stage).
+    A stage's milliseconds are those of its span `sharded.<stage>`: CUDA
+    events on the card, read once the attempt's overflow count is on the
+    host, else the host clock; no stage waits for the card.  Without a
+    report, no stage is timed for one and no peak counter is reset."""
     d = comm.d
     n_local, width = seqs_l.shape
     n_reads = n_local * d
@@ -132,7 +131,7 @@ def smooth_rank(seqs_l, quals_l, lens_l, comm: Comm, cfg: SmoothConfig,
     m = n_pad // d
     for _ in range(ATTEMPTS):
         sent, staged, launches = comm.sent_bytes, comm.staged_bytes, cuda_scan.launches
-        stages = _Stages(report, comm.device)
+        stages = None if report is None else {}
         cap_sorted = int(capacity_factor * m) + 64
         rebalance_cap = min(int(capacity_factor * m / 8) + 1024, m)
         ctx = Ctx(comm, m, n_pad, cap_sorted, rebalance_cap=rebalance_cap)
@@ -140,6 +139,8 @@ def smooth_rank(seqs_l, quals_l, lens_l, comm: Comm, cfg: SmoothConfig,
             ctx, n_reads, width, seqs_l, quals_l, lens_l, cfg, stages)
         overflow = int(overflow)
         if report is not None:
+            # the spans' ms, read now that the overflow count is on the host
+            report.update({k: v.ms if k.endswith("_ms") else v for k, v in stages.items()})
             report.setdefault("attempts", []).append(
                 {"capacity_factor": capacity_factor, "overflow": overflow})
             report.update(sent_bytes=comm.sent_bytes - sent, staged_bytes=comm.staged_bytes - staged,
@@ -151,17 +152,21 @@ def smooth_rank(seqs_l, quals_l, lens_l, comm: Comm, cfg: SmoothConfig,
                        f"after {ATTEMPTS} attempts (last capacity factor {capacity_factor / 2})")
 
 
-def _rank(comm, seqs, quals, lengths, out_seqs, out_quals, out_lengths, cfg, capacity_factor):
+def _rank(comm, seqs, quals, lengths, out_seqs, out_quals, out_lengths, cfg, capacity_factor,
+          with_report):
     """A spawned rank: its rows of the shared inputs in, its rows of the
-    shared outputs written; returns the stats and the rank's report."""
+    shared outputs written; returns the stats and the rank's report (None
+    unless `with_report`)."""
     rows = seqs.shape[0] // comm.d
     lo, hi = comm.rank * rows, (comm.rank + 1) * rows
-    report: dict = {}
-    s, q, ln, stats = smooth_rank(seqs[lo:hi].to(comm.device), quals[lo:hi].to(comm.device),
-                                  lengths[lo:hi].to(comm.device), comm, cfg, capacity_factor, report)
-    out_seqs[lo:hi] = s.cpu()
-    out_quals[lo:hi] = q.cpu()
-    out_lengths[lo:hi] = ln.cpu()
+    report = {} if with_report else None
+    with span("sharded.smooth_fastq"):
+        s, q, ln, stats = smooth_rank(seqs[lo:hi].to(comm.device), quals[lo:hi].to(comm.device),
+                                      lengths[lo:hi].to(comm.device), comm, cfg, capacity_factor,
+                                      report)
+        out_seqs[lo:hi] = s.cpu()
+        out_quals[lo:hi] = q.cpu()
+        out_lengths[lo:hi] = ln.cpu()
     return {k: int(v) for k, v in stats.items()}, report
 
 
@@ -197,7 +202,8 @@ def smooth_fastq_sharded(
               for a in (seqs, quals, lengths.astype(np.int32))]
     outs = [torch.zeros_like(t).share_memory_() for t in shared]
     results = mesh.spawn(_rank, shards, device, work_dir or tempfile.gettempdir(),
-                         args=(*shared, *outs, cfg, capacity_factor), backend=backend)
+                         args=(*shared, *outs, cfg, capacity_factor, reports is not None),
+                         backend=backend)
     if reports is not None:
         reports.extend(rep for _, rep in results)
     n0 = batch.num_reads
@@ -209,15 +215,21 @@ def smooth_fastq_sharded(
 def _smooth_on(batch: ReadBatch, cfg: SmoothConfig, comm: Comm, capacity_factor: float,
                reports: list | None) -> Tuple[ReadBatch, dict]:
     """smooth_fastq_sharded as one rank of `comm`: this rank's rows of the
-    whole batch in, every rank's smoothed rows gathered out."""
-    seqs, quals, lengths = pad_reads_to_multiple(batch.seqs, batch.quals, batch.lengths, comm.d)
-    report: dict = {}
-    s, q, ln, stats = smooth_rank(*local_rows((seqs, quals, lengths.astype(np.int32)), comm),
-                                  comm, cfg, capacity_factor, report)
-    if reports is not None:
-        reports.append(report)
-    n0 = batch.num_reads
-    out = ReadBatch(**{k: comm.all_gather(v).flatten(0, 1)[:n0].cpu().numpy()
-                       for k, v in (("seqs", s), ("quals", q), ("lengths", ln))},
-                    headers=batch.headers)
+    whole batch in, every rank's smoothed rows gathered out, all inside the
+    call's root span `sharded.smooth_fastq`."""
+    with span("sharded.smooth_fastq"):
+        with span("sharded.pad"):
+            seqs, quals, lengths = pad_reads_to_multiple(batch.seqs, batch.quals, batch.lengths,
+                                                         comm.d)
+        with span("sharded.upload"):
+            local = local_rows((seqs, quals, lengths.astype(np.int32)), comm)
+        report = None if reports is None else {}
+        s, q, ln, stats = smooth_rank(*local, comm, cfg, capacity_factor, report)
+        if reports is not None:
+            reports.append(report)
+        n0 = batch.num_reads
+        with span("sharded.gather"):
+            out = ReadBatch(**{k: comm.all_gather(v).flatten(0, 1)[:n0].cpu().numpy()
+                               for k, v in (("seqs", s), ("quals", q), ("lengths", ln))},
+                            headers=batch.headers)
     return out, {k: int(v) for k, v in stats.items()}

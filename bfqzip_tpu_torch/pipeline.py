@@ -43,6 +43,7 @@ from bfqzip_tpu_torch.ops import rans
 from bfqzip_tpu_torch.ops.suffix import build_ebwt
 from bfqzip_tpu_torch.parallel import mesh
 from bfqzip_tpu_torch.utils.logging import StepLogger
+from bfqzip_tpu_torch.utils.profiling import span
 
 ZIP7 = shutil.which("7z")
 BSC = shutil.which("bsc")
@@ -63,11 +64,12 @@ def _meta_path(base):
 def _fingerprint(batch: ReadBatch) -> str:
     """Identity of the stage-1 input: the exact read content (the cache is
     valid only while the hash recorded in meta.json matches)."""
-    h = hashlib.sha256()
-    h.update(np.ascontiguousarray(batch.seqs).tobytes())
-    h.update(np.ascontiguousarray(batch.quals).tobytes())
-    h.update(np.ascontiguousarray(batch.lengths).tobytes())
-    return h.hexdigest()
+    with span("pipeline.fingerprint"):
+        h = hashlib.sha256()
+        h.update(np.ascontiguousarray(batch.seqs).tobytes())
+        h.update(np.ascontiguousarray(batch.quals).tobytes())
+        h.update(np.ascontiguousarray(batch.lengths).tobytes())
+        return h.hexdigest()
 
 
 def _artifacts_exist(base: str, fingerprint: Optional[str] = None) -> bool:
@@ -96,38 +98,44 @@ def step1_build(batch: ReadBatch, base: str, log: StepLogger, device) -> None:
         qs = ebwt.qs[:n].cpu().numpy()
         lcp = ebwt.lcp[:n].cpu().numpy()
         del ebwt
-        with open(base + ".bwt", "wb") as f:
-            f.write(alphabet.decode(bwt).tobytes())
-        with open(base + ".bwt.qs", "wb") as f:
-            f.write(qs.tobytes())
-        with open(base + ".lcp", "wb") as f:
-            f.write(lcp.astype("<u2").tobytes())
-        with open(_meta_path(base), "w") as f:
-            json.dump(
-                {
-                    "n": n,
-                    "n_reads": batch.num_reads,
-                    "max_len": batch.max_len,
-                    "fingerprint": _fingerprint(batch),
-                },
-                f,
-            )
+        meta = {"n": n, "n_reads": batch.num_reads, "max_len": batch.max_len,
+                "fingerprint": _fingerprint(batch)}
+        for ext, data in ((".bwt", alphabet.decode(bwt)), (".bwt.qs", qs), (".lcp", lcp.astype("<u2"))):
+            _write(base + ext, data.tobytes())
+        with span("pipeline.write"), open(_meta_path(base), "w") as f:
+            json.dump(meta, f)
+
+
+def _write(path: str, data: bytes) -> None:
+    with span("pipeline.write"), open(path, "wb") as f:
+        f.write(data)
+
+
+def _write_headers(base: str, headers) -> None:
+    _write(base + ".h", b"\n".join(headers) + b"\n")
+
+
+def _write_fq(base: str, batch: ReadBatch, headers) -> None:
+    with span("pipeline.format_fastq"):
+        data = format_fastq(batch, headers=headers)
+    _write(base + ".fq", data)
 
 
 def load_artifacts(base: str, device):
     """The stage-1 artifacts as ((bwt, qs, lcp, n), meta): the arrays on
     `device`, padded to a multiple of 1024 with bwt=SIGMA, qs=0, lcp=0, and
     n a 0-d int32 tensor there."""
-    with open(_meta_path(base)) as f:
-        meta = json.load(f)
-    n = meta["n"]
-    pad = ((n + 1023) // 1024) * 1024 - n
-    bwt = np.pad(alphabet.encode(np.fromfile(base + ".bwt", np.uint8)), (0, pad),
-                 constant_values=alphabet.SIGMA)
-    qs = np.pad(np.fromfile(base + ".bwt.qs", np.uint8), (0, pad))
-    lcp = np.pad(np.fromfile(base + ".lcp", "<u2").astype(np.int32), (0, pad))
-    arrays = tuple(torch.as_tensor(a).to(device) for a in (bwt, qs, lcp))
-    return (*arrays, torch.tensor(n, dtype=torch.int32, device=device)), meta
+    with span("pipeline.load_artifacts"):
+        with open(_meta_path(base)) as f:
+            meta = json.load(f)
+        n = meta["n"]
+        pad = ((n + 1023) // 1024) * 1024 - n
+        bwt = np.pad(alphabet.encode(np.fromfile(base + ".bwt", np.uint8)), (0, pad),
+                     constant_values=alphabet.SIGMA)
+        qs = np.pad(np.fromfile(base + ".bwt.qs", np.uint8), (0, pad))
+        lcp = np.pad(np.fromfile(base + ".lcp", "<u2").astype(np.int32), (0, pad))
+        arrays = tuple(torch.as_tensor(a).to(device) for a in (bwt, qs, lcp))
+        return (*arrays, torch.tensor(n, dtype=torch.int32, device=device)), meta
 
 
 def step3_smooth(base: str, cfg: PipelineConfig, log: StepLogger, device, debug_dump: bool = False):
@@ -447,8 +455,7 @@ def run_pipeline(
     # ---- step 2: headers ----
     headers_on = cfg.headers or cfg.mode == 3
     if headers_on and batch.headers is not None:
-        with open(base + ".h", "wb") as f:
-            f.write(b"\n".join(batch.headers) + b"\n")
+        _write_headers(base, batch.headers)
 
     # ---- step 3 (+4) ----
     stats: Dict[str, int] = {}
@@ -457,9 +464,7 @@ def run_pipeline(
             shutil.copyfile(inputs[0], base + ".fq")
     elif smoothed is None:
         smoothed, stats = step3_smooth(base, cfg, log, device, debug_dump=debug_dump)
-        hdrs = batch.headers if headers_on else None
-        with open(base + ".fq", "wb") as f:
-            f.write(format_fastq(smoothed, headers=hdrs))
+        _write_fq(base, smoothed, batch.headers if headers_on else None)
 
     return _finish_pipeline(inputs, cfg, base, log, stats, paired_split)
 
@@ -468,11 +473,8 @@ def _write_smoothed(batch: ReadBatch, smoothed: ReadBatch, base: str, cfg: Pipel
     """The .h (when headers are kept) and .fq files of a fused steps 1-3 run."""
     headers_on = cfg.headers or cfg.mode == 3
     if headers_on and batch.headers is not None:
-        with open(base + ".h", "wb") as f:
-            f.write(b"\n".join(batch.headers) + b"\n")
-    hdrs = batch.headers if headers_on else None
-    with open(base + ".fq", "wb") as f:
-        f.write(format_fastq(smoothed, headers=hdrs))
+        _write_headers(base, batch.headers)
+    _write_fq(base, smoothed, batch.headers if headers_on else None)
 
 
 def _finish_pipeline(inputs, cfg, base, log, stats, paired_split) -> PipelineResult:
@@ -635,9 +637,7 @@ def _write_blocks(batch, merged_w, perm, base, cfg) -> None:
         seqs=merged_w.seqs[inv], quals=merged_w.quals[inv],
         lengths=merged_w.lengths[inv], headers=batch.headers,
     )
-    hdrs = batch.headers if (cfg.headers or cfg.mode == 3) else None
-    with open(base + ".fq", "wb") as f:
-        f.write(format_fastq(merged, headers=hdrs))
+    _write_fq(base, merged, batch.headers if (cfg.headers or cfg.mode == 3) else None)
 
 
 def _load_fq(base: str) -> ReadBatch:

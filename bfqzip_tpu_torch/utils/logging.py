@@ -20,7 +20,7 @@ from typing import List
 
 import torch
 
-from bfqzip_tpu_torch.utils.profiling import device_memory_stats
+from bfqzip_tpu_torch.utils.profiling import device_memory_stats, span
 
 
 def _rss_kb() -> int:
@@ -50,31 +50,33 @@ class StepLogger:
 
     @contextlib.contextmanager
     def step(self, name: str):
-        t0 = time.time()
-        rss0 = _rss_kb()
-        if self._cuda():
-            torch.cuda.reset_peak_memory_stats(self.device)
-        self.info(f"--- {name} ---")
-        try:
-            yield
-        finally:
+        """A logged step, also the span `step.<name>`."""
+        with span("step." + name):
+            t0 = time.time()
+            rss0 = _rss_kb()
             if self._cuda():
-                torch.cuda.synchronize(self.device)
-            rec = {
-                "phase": name,
-                "seconds": time.time() - t0,
-                "host_rss_delta_mb": round((_rss_kb() - rss0) / 1024.0, 2),
-                "host_rss_peak_mb": round(_rss_kb() / 1024.0, 2),
-            }
-            rec.update(device_memory_stats(self.device))
-            mem = f"  host_rss_delta={rec['host_rss_delta_mb']:.1f}MB"
-            if "peak_bytes_in_use" in rec:
-                mem += (
-                    f"  dev_in_use={rec['bytes_in_use']/2**20:.1f}MB"
-                    f"  dev_peak={rec['peak_bytes_in_use']/2**20:.1f}MB"
-                )
-            self.phases.append(rec)
-            self.info(f"    elapsed: {rec['seconds']:.4f}s{mem}")
+                torch.cuda.reset_peak_memory_stats(self.device)
+            self.info(f"--- {name} ---")
+            try:
+                yield
+            finally:
+                if self._cuda():
+                    torch.cuda.synchronize(self.device)
+                rec = {
+                    "phase": name,
+                    "seconds": time.time() - t0,
+                    "host_rss_delta_mb": round((_rss_kb() - rss0) / 1024.0, 2),
+                    "host_rss_peak_mb": round(_rss_kb() / 1024.0, 2),
+                }
+                rec.update(device_memory_stats(self.device))
+                mem = f"  host_rss_delta={rec['host_rss_delta_mb']:.1f}MB"
+                if "peak_bytes_in_use" in rec:
+                    mem += (
+                        f"  dev_in_use={rec['bytes_in_use']/2**20:.1f}MB"
+                        f"  dev_peak={rec['peak_bytes_in_use']/2**20:.1f}MB"
+                    )
+                self.phases.append(rec)
+                self.info(f"    elapsed: {rec['seconds']:.4f}s{mem}")
 
     def run(self, cmd) -> None:
         """Run a subprocess with output captured into the log (the reference's

@@ -17,12 +17,15 @@ bfq_int.cpp:976-1001) and wall-clock timers around every step
     on a card), `device_info`, the card's name, count and power limit
     that every measurement is printed beside, `host_info`, the host's CPU
     model and cores beside host-side measurements, and `RssSampler`, the
-    peak resident set of a stretch of work.
+    peak resident set of a stretch of work;
+  * spans at the program's layer boundaries (`span`, read back by `spans`),
+    recorded while a torch.profiler is active or inside `recording()`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
 import platform
@@ -32,8 +35,16 @@ import time
 from typing import Callable, Dict, List, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
-from bfqzip_tpu_torch.engine import resolve_device
+
+def resolve_device(device) -> torch.device:
+    """The device asked for; a CUDA device without a card raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is False")
+    return dev
+
 
 # Chrome-trace categories of work on the card: kernels, copies and fills
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -193,15 +204,6 @@ class PhaseProfiler:
             self.trace_path = os.path.join(self.trace_dir, f"{region}.trace.json")
             prof.export_chrome_trace(self.trace_path)
 
-    def report(self) -> str:
-        lines = []
-        for r in self.records:
-            mem = ""
-            if "peak_bytes_in_use" in r:
-                mem = f"  peak_dev_mem={r['peak_bytes_in_use']/2**20:.1f}MB"
-            lines.append(f"{r['phase']}: {r['seconds']:.3f}s{mem}")
-        return "\n".join(lines)
-
 
 def _merged_us(intervals) -> float:
     """Total length of the union of [start, end) intervals."""
@@ -249,3 +251,137 @@ def device_timeline(trace_path: str, region: str) -> dict:
     busy_ms = _merged_us(clipped) / 1e3
     return {"span_ms": span_ms, "busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / span_ms,
             "kernels": kernels}
+
+
+# ---- spans ----
+#
+# A span is one interval of the program at a layer boundary: its name, its
+# host start and end, its parent span and its call (the outermost span of
+# the thread's stack), and on CUDA a pair of timing events on the current
+# stream, read only when the spans are read.  Each span also opens the
+# torch.profiler annotation "bfq.<name>", so it lands in a device trace.
+# The host times are time.time_ns(), the clock (Unix time) the profiler
+# converts its own to: the start is the midpoint of the stamps around the
+# annotation's opening call, the end a stamp after its closing call, so
+# each agrees with the annotation's to some tens of microseconds.
+# Recording is on while a torch.profiler is active or inside recording();
+# otherwise span() is one flag test and a shared null context.
+
+_recording = 0  # depth of recording() blocks
+_records: list = []  # finished spans, kept in memory until clear_spans()
+_ids = itertools.count(1)
+_local = threading.local()  # each thread's stack of open spans
+_NULL = contextlib.nullcontext()
+
+
+class _Span:
+    """One span.  `kept` spans are recorded (annotation, stack, records);
+    a span that is only timed (span(timed=True) with recording off) has the
+    host times and the events alone."""
+
+    __slots__ = ("name", "kept", "id", "parent", "call", "start_ns", "end_ns", "_rf", "_events",
+                 "_device_ms")
+
+    def __init__(self, name: str, kept: bool):
+        self.name, self.kept = name, kept
+        self.id = self.parent = self.call = self._rf = self._events = self._device_ms = None
+
+    def __enter__(self):
+        if self.kept:
+            stack = _stack()
+            self.id = next(_ids)
+            if stack:
+                self.parent, self.call = stack[-1].id, stack[-1].call
+            else:
+                self.call = self.id
+            stack.append(self)
+            self._rf = torch.profiler.record_function("bfq." + self.name)
+        self.start_ns = time.time_ns()
+        if self._rf is not None:
+            self._rf.__enter__()
+            self.start_ns = (self.start_ns + time.time_ns()) // 2
+        if torch.cuda.is_initialized():
+            self._events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            self._events[0].record()
+        return self
+
+    def __exit__(self, *exc):
+        if self._events is not None:
+            self._events[1].record()
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        self.end_ns = time.time_ns()
+        if self.kept:
+            _stack().pop()
+            _records.append(self)
+        return False
+
+    @property
+    def host_ms(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e6
+
+    @property
+    def device_ms(self) -> Optional[float]:
+        """Milliseconds between the span's two events on the card (None
+        without a card); waits for the closing event if it has not run."""
+        if self._device_ms is None and self._events is not None:
+            self._events[1].synchronize()
+            self._device_ms = self._events[0].elapsed_time(self._events[1])
+            self._events = None
+        return self._device_ms
+
+    @property
+    def ms(self) -> float:
+        """device_ms where there is one, else host_ms."""
+        device = self.device_ms
+        return self.host_ms if device is None else device
+
+
+def _stack() -> list:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+def span(name: str, timed: bool = False):
+    """Context manager: the span `name` of the code inside it, recorded while
+    recording is on (it yields the span).  Off, it yields None, unless
+    `timed`: then it yields a span that keeps its times (`ms`) for the
+    caller alone, and opens no annotation and records nothing."""
+    if _recording or _autograd_profiler._is_profiler_enabled:
+        return _Span(name, True)
+    return _Span(name, False) if timed else _NULL
+
+
+@contextlib.contextmanager
+def recording():
+    """Record spans inside this block, with or without a torch.profiler."""
+    global _recording
+    _recording += 1
+    try:
+        yield
+    finally:
+        _recording -= 1
+
+
+def spans() -> List[dict]:
+    """The recorded spans in start order, as dicts: name, id, parent (id or
+    None), call (the outermost span's id), start_ns / end_ns (time.time_ns
+    clock), host_ms, self_ms (host_ms minus what the children cover) and
+    device_ms (None without a card).  A child opens and closes inside its
+    parent, on the parent's thread."""
+    done = sorted(_records, key=lambda s: s.start_ns)
+    children: Dict[int, list] = {}
+    for s in done:
+        if s.parent is not None:
+            children.setdefault(s.parent, []).append((s.start_ns, s.end_ns))
+    return [{"name": s.name, "id": s.id, "parent": s.parent, "call": s.call,
+             "start_ns": s.start_ns, "end_ns": s.end_ns, "host_ms": s.host_ms,
+             "self_ms": s.host_ms - _merged_us(children.get(s.id, ())) / 1e6,
+             "device_ms": s.device_ms} for s in done]
+
+
+def clear_spans() -> None:
+    """Forget the recorded spans."""
+    _records.clear()

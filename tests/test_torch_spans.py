@@ -1,0 +1,315 @@
+"""The port's spans (utils/profiling.span): nothing recorded or opened while
+recording is off; parent, call and self time inside recording(); the
+profiler's annotations of smooth_fastq nested as the spans are, on the
+spans' clock; the CLI's spans with its OUT.log unchanged; the sharded
+path's reports built only when asked for; and the benchmark's span readers
+on hand-made span lists."""
+
+import importlib.util
+import json
+import os
+import shutil
+import sys
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from bfqzip_tpu_torch import cli
+from bfqzip_tpu_torch.config import SmoothConfig
+from bfqzip_tpu_torch.engine import smooth_fastq
+from bfqzip_tpu_torch.io.fastq import read_fastq
+from bfqzip_tpu_torch.parallel import mesh
+from bfqzip_tpu_torch.utils import profiling
+
+import torch_ranks
+from conftest import golden_path
+from torch_cpu import one_torch_thread  # noqa: F401  (autouse)
+
+BENCH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "benchmark")
+
+# parent -> children of one smooth_fastq call (the flat build)
+SMOOTH_FASTQ_TREE = {
+    "engine.smooth_fastq": ["engine.upload", "suffix.build_ebwt", "smooth.smooth",
+                            "invert.invert_via_sa", "engine.download"],
+    "suffix.build_ebwt": ["suffix.pack", "suffix.sort_lsd", "suffix.post", "suffix.lcp"],
+    "smooth.smooth": ["smooth.cluster_words", "smooth.broadcast_words", "smooth.apply_words"],
+}
+
+
+@pytest.fixture(autouse=True)
+def no_spans():
+    profiling.clear_spans()
+    yield
+    profiling.clear_spans()
+
+
+def _children(spans) -> dict:
+    by_id = {s["id"]: s["name"] for s in spans}
+    tree = {}
+    for s in spans:
+        if s["parent"] is not None:
+            tree.setdefault(by_id[s["parent"]], []).append(s["name"])
+    return tree
+
+
+# ---- the facility ----
+
+def test_off_records_and_opens_nothing(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("opened while recording is off")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    assert profiling.span("a") is profiling.span("b")  # one shared null context
+    with profiling.span("a") as sp:
+        with profiling.span("b"):
+            pass
+    assert sp is None
+    assert profiling.spans() == []
+
+
+def test_timed_span_keeps_its_times_but_records_nothing(monkeypatch):
+    monkeypatch.setattr(torch.profiler, "record_function", lambda *a: pytest.fail("opened"))
+    with profiling.span("stage", timed=True) as sp:
+        time.sleep(0.002)
+    assert sp.device_ms is None and sp.ms == sp.host_ms >= 2.0
+    assert profiling.spans() == []
+
+
+def test_nesting_ids_and_self_time():
+    with profiling.recording():
+        with profiling.span("call"):
+            time.sleep(0.002)
+            with profiling.span("first"):
+                time.sleep(0.003)
+                with profiling.span("inner"):
+                    time.sleep(0.002)
+            with profiling.span("second"):
+                time.sleep(0.002)
+        with profiling.span("next_call"):
+            pass
+    with profiling.span("after"):  # recording is off again
+        pass
+    spans = profiling.spans()
+    by = {s["name"]: s for s in spans}
+    assert [s["name"] for s in spans] == ["call", "first", "inner", "second", "next_call"]
+    call = by["call"]
+    assert call["parent"] is None and call["call"] == call["id"]
+    assert by["first"]["parent"] == by["second"]["parent"] == call["id"]
+    assert by["inner"]["parent"] == by["first"]["id"]
+    assert {by[n]["call"] for n in ("first", "inner", "second")} == {call["id"]}
+    assert by["next_call"]["call"] == by["next_call"]["id"] != call["id"]
+    for s in spans:
+        assert s["host_ms"] == pytest.approx((s["end_ns"] - s["start_ns"]) / 1e6)
+        assert s["device_ms"] is None
+    assert call["self_ms"] == pytest.approx(call["host_ms"] - by["first"]["host_ms"]
+                                            - by["second"]["host_ms"])
+    assert by["first"]["self_ms"] == pytest.approx(by["first"]["host_ms"] - by["inner"]["host_ms"])
+    assert by["inner"]["self_ms"] == pytest.approx(by["inner"]["host_ms"])
+    assert call["self_ms"] >= 2.0 and by["first"]["self_ms"] >= 3.0
+
+
+def _profiled_smooth_fastq(batch, path: str):
+    """(spans, annotations): one smooth_fastq under torch.profiler on the
+    CPU, its recorded spans and its Chrome trace's bfq.* annotations, both
+    in start order, the annotations' ts and dur in microseconds of Unix time."""
+    profiling.clear_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function("warm-up"):  # a profiler's first annotation is slow
+            pass
+        smooth_fastq(batch, SmoothConfig(), device="cpu")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    base_us = trace.get("baseTimeNanoseconds", 0) / 1e3
+    marks = sorted(({"name": e["name"], "ts": e["ts"] + base_us, "dur": e["dur"]}
+                    for e in trace["traceEvents"] if e.get("ph") == "X"
+                    and e.get("cat") == "user_annotation" and e["name"].startswith("bfq.")),
+                   key=lambda e: e["ts"])
+    return profiling.spans(), marks
+
+
+def test_smooth_fastq_annotations_nest_on_the_spans_clock(tmp_path):
+    """The annotations nest as the spans do, and start where the spans
+    start.  A stamp on a busy host can land tens of microseconds off when
+    the thread is held up inside the annotation's opening call, so the 50 us
+    agreement is asked of one of a few calls, and 0.1 s of every call: any
+    other clock is off by far more."""
+    batch = read_fastq(golden_path("example.in.fastq"))
+    path = str(tmp_path / "trace.json")
+    _profiled_smooth_fastq(batch, path)  # warm-up: the first annotation of a process is slower
+    worst = []
+    for _ in range(5):
+        spans, marks = _profiled_smooth_fastq(batch, path)
+        assert {k: v for k, v in _children(spans).items() if k in SMOOTH_FASTQ_TREE} == SMOOTH_FASTQ_TREE
+        assert [e["name"] for e in marks] == ["bfq." + s["name"] for s in spans]
+        interval = {s["id"]: (e["ts"], e["ts"] + e["dur"]) for e, s in zip(marks, spans)}
+        for s in spans:  # each annotation lies inside its parent's
+            if s["parent"] is not None:
+                (lo, hi), (plo, phi) = interval[s["id"]], interval[s["parent"]]
+                assert plo <= lo and hi <= phi, s["name"]
+        offsets = [abs(e["ts"] - s["start_ns"] / 1e3) for e, s in zip(marks, spans)]
+        assert max(offsets) < 1e5, offsets
+        worst.append(max(offsets))
+        if worst[-1] < 50:
+            break
+    assert min(worst) < 50, worst
+
+
+def _load(kind: str, name: str):
+    if BENCH not in sys.path:
+        sys.path.insert(0, BENCH)
+    spec = importlib.util.spec_from_file_location(f"spans_test_{kind}_{name}".replace(".", "_"),
+                                                  os.path.join(BENCH, kind, name + ".py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_cli_spans_and_unchanged_log(tmp_path):
+    src = str(tmp_path / "reads.fastq")
+    shutil.copyfile(golden_path("example.in.fastq"), src)
+    base = str(tmp_path / "out")
+    with profiling.recording():
+        assert cli.main([src, "-o", base, "-0", "--cpu"]) == 0
+    spans = profiling.spans()
+    root = spans[0]
+    assert root["name"] == "cli.main" and root["parent"] is None
+    assert all(s["call"] == root["id"] for s in spans)
+    names = [s["name"] for s in spans]
+    assert names.count("pipeline.fingerprint") == 2  # the cache check, and step 1's meta
+    assert names.count("pipeline.write") == 5  # .bwt, .bwt.qs, .lcp, .meta.json, .fq
+    for name in ("pipeline.load_artifacts", "pipeline.format_fastq", "step.read FASTQ",
+                 "step.step1: EBWT+QS+LCP construction", "step.step3: cluster smoothing + inversion",
+                 "engine.smooth_arrays_step", "rank.lf_and_pre", "invert.invert", "suffix.build_ebwt"):
+        assert name in names
+    assert 0 <= root["self_ms"] < root["host_ms"]
+    phases = _load("entries", "cli_file")._phases(base + ".log")
+    assert [p["phase"] for p in phases] == ["read FASTQ", "step1: EBWT+QS+LCP construction",
+                                            "step3: cluster smoothing + inversion"]
+    assert all(p["seconds"] >= 0 for p in phases)
+
+
+def test_sharded_report_only_when_asked(tmp_path):
+    rng = np.random.default_rng(3)
+    n, width = 32, 12
+    lengths = rng.integers(4, width + 1, n).astype(np.int32)
+    seqs = np.where(np.arange(width)[None, :] < lengths[:, None],
+                    rng.integers(1, 5, (n, width)), 0).astype(np.uint8)
+    quals = np.where(seqs > 0, rng.integers(35, 75, (n, width)), 0).astype(np.uint8)
+    per_rank = mesh.spawn(torch_ranks.sharded_reports, 2, "cpu", str(tmp_path),
+                          args=((seqs, quals, lengths),), timeout_s=120)
+    for handed, report, spans in per_rank:
+        assert handed == [None, {}]  # smooth_rank's report: none without `reports`
+        assert sorted(report) == ["attempts", "rebalance_ms", "scatter_ms", "seg_scan_launches",
+                                  "sent_bytes", "smooth_ms", "sort_ms", "staged_bytes"]
+        assert all(isinstance(report[k], float) and report[k] > 0 for k in report if k.endswith("_ms"))
+        # every span of the recorded call shares the root's call id
+        roots = [s for s in spans if s["parent"] is None]
+        assert [r["name"] for r in roots] == ["sharded.smooth_fastq"]
+        assert all(s["call"] == roots[0]["id"] for s in spans)
+        assert _children(spans)["sharded.smooth_fastq"] == [
+            "sharded.pad", "sharded.upload", "sharded.sort", "sharded.rebalance", "sharded.smooth",
+            "sharded.scatter", "sharded.gather"]
+
+
+# ---- the benchmark's readers ----
+
+def _s(name, i, parent=None, call=None, host_ms=0.0, self_ms=None, device_ms=None):
+    return {"name": name, "id": i, "parent": parent, "call": call or i, "start_ns": i,
+            "end_ns": i + 1, "host_ms": host_ms, "self_ms": host_ms if self_ms is None else self_ms,
+            "device_ms": device_ms}
+
+
+def _batch_spans():
+    spans = []
+    for c in (1, 100):  # two calls
+        spans += [_s("engine.smooth_fastq", c, host_ms=1500.0, device_ms=1400.0),
+                  _s("suffix.build_ebwt", c + 1, c, c, device_ms=550.0 + c),
+                  _s("suffix.sort_lsd", c + 2, c + 1, c, device_ms=300.0 + c),
+                  _s("smooth.smooth", c + 3, c, c, device_ms=430.0 + c),
+                  _s("smooth.cluster_words", c + 4, c + 3, c, device_ms=250.0 + c),
+                  _s("invert.invert_via_sa", c + 5, c, c, device_ms=40.0 + c)]
+    return spans
+
+
+def _file_spans():
+    spans = []
+    for c in (1, 100, 200):  # three files
+        spans += [_s("cli.main", c, host_ms=4500.0, self_ms=90.0 + c),
+                  _s("pipeline.fingerprint", c + 1, c, c, host_ms=150.0),
+                  _s("pipeline.fingerprint", c + 2, c + 10, c, host_ms=160.0),
+                  _s("pipeline.load_artifacts", c + 3, c, c, host_ms=200.0 + c),
+                  _s("pipeline.format_fastq", c + 4, c, c, host_ms=1600.0 + c),
+                  _s("pipeline.write", c + 5, c, c, host_ms=100.0),
+                  _s("pipeline.write", c + 6, c, c, host_ms=300.0 + c)]
+    return spans
+
+
+def _mesh_spans():
+    spans = []
+    for c in (1, 100):  # two calls
+        spans += [_s("sharded.smooth_fastq", c, host_ms=2000.0),
+                  _s("sharded.pad", c + 1, c, c, host_ms=80.0),
+                  _s("sharded.upload", c + 2, c, c, host_ms=120.0),
+                  _s("sharded.sort", c + 3, c, c, device_ms=1000.0, host_ms=1000.0),
+                  _s("sharded.gather", c + 4, c, c, host_ms=400.0 + c)]
+    return spans
+
+
+READERS = {
+    "suffix.build_span_ms": (_batch_spans, 550.0 + 50.5),
+    "suffix.sort_span_ms": (_batch_spans, 300.0 + 50.5),
+    "smooth.smooth_span_ms": (_batch_spans, 430.0 + 50.5),
+    "smooth.cluster_words_span_ms": (_batch_spans, 250.0 + 50.5),
+    "invert.invert_span_ms": (_batch_spans, 40.0 + 50.5),
+    "pipeline.fingerprint_s": (_file_spans, 0.31),
+    "pipeline.format_fastq_s": (_file_spans, (1600.0 + 301 / 3) / 1e3),
+    "pipeline.write_s": (_file_spans, (400.0 + 301 / 3) / 1e3),
+    "pipeline.load_artifacts_s": (_file_spans, (200.0 + 301 / 3) / 1e3),
+    "pipeline.unspanned_s": (_file_spans, (90.0 + 301 / 3) / 1e3),
+    "sharded.host_span_ms": (_mesh_spans, 80.0 + 120.0 + 400.0 + 50.5),
+}
+
+
+@pytest.mark.parametrize("name", sorted(READERS))
+def test_reader_on_hand_made_spans(name, monkeypatch):
+    make, want = READERS[name]
+    monkeypatch.setattr(profiling, "spans", make)
+    assert _load("metrics", name).read({}) == pytest.approx(want)
+
+
+@pytest.mark.parametrize("name", sorted(READERS))
+def test_reader_without_spans_reads_nothing(name, monkeypatch):
+    reader = _load("metrics", name)
+    monkeypatch.setattr(profiling, "spans", list)
+    assert reader.read({}) is None
+    monkeypatch.delattr(profiling, "spans")  # a program without spans
+    assert reader.read({}) is None
+
+
+@pytest.mark.parametrize("name", [n for n in sorted(READERS) if n.endswith("span_ms")
+                                  and not n.startswith("sharded")])
+def test_batch_reader_reads_nothing_without_device_times(name, monkeypatch):
+    spans = [dict(s, device_ms=None) for s in _batch_spans()]
+    monkeypatch.setattr(profiling, "spans", lambda: spans)
+    assert _load("metrics", name).read({}) is None
+
+
+def test_span_cost_tool_on_the_cpu(capsys):
+    """tools/span_cost_torch.py at a tiny size: both kinds of call timed in
+    alternating pairs, with recording on and off."""
+    spec = importlib.util.spec_from_file_location(
+        "span_cost_torch", os.path.join(os.path.dirname(BENCH), "tools", "span_cost_torch.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    assert tool.main(["--pairs", "2", "--reads", "400", "--file-reads", "300", "--cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["device"]["type"] == "cpu" and out["pairs"] == 2
+    for kind, reads in (("batch", 400), ("file", 300)):
+        got = out[kind]
+        assert got["reads"] == reads and len(got["on_s"]) == len(got["off_s"]) == 2
+        assert got["on"]["q1"] <= got["on"]["median"] <= got["on"]["q3"]
+    assert profiling.spans() == []  # each "on" call's spans were read and forgotten

@@ -73,7 +73,6 @@ def test_phase_profiler_on_the_cpu(tmp_path):
         x.flip(0).sort()
     assert [r["phase"] for r in prof.records] == ["sum", "sort"]
     assert all(set(r) == {"phase", "seconds"} and r["seconds"] >= 0 for r in prof.records)
-    assert prof.report().splitlines()[0].startswith("sum: ")
     with prof.trace("region"):
         x.cumsum(0)
     assert prof.profile is not None and len(prof.profile.key_averages()) > 0

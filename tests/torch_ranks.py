@@ -102,3 +102,32 @@ def fail_on_rank_1(comm):
     if comm.rank == 1:
         raise ValueError("rank 1 gives up")
     return float(comm.psum(torch.ones(())))
+
+
+def sharded_reports(comm, arrays):
+    """smooth_fastq_sharded(comm=) without `reports`, then with
+    `reports=[]`: the report argument smooth_rank was handed in each call,
+    and the report of the second; then a third call inside recording(),
+    and the spans it recorded."""
+    from bfqzip_tpu_torch.parallel import global_pipeline
+    from bfqzip_tpu_torch.utils import profiling
+
+    handed, real = [], global_pipeline.smooth_rank
+
+    def spy(*args):
+        handed.append(None if args[-1] is None else dict(args[-1]))
+        return real(*args)
+
+    seqs, quals, lengths = arrays
+    batch = ReadBatch(seqs=seqs, quals=quals, lengths=lengths)
+    global_pipeline.smooth_rank = spy
+    try:
+        smooth_fastq_sharded(batch, SmoothConfig(), comm=comm)
+        reports = []
+        smooth_fastq_sharded(batch, SmoothConfig(), comm=comm, reports=reports)
+    finally:
+        global_pipeline.smooth_rank = real
+    profiling.clear_spans()
+    with profiling.recording():
+        smooth_fastq_sharded(batch, SmoothConfig(), comm=comm)
+    return handed, reports[0], profiling.spans()
