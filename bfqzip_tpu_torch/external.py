@@ -51,7 +51,7 @@ import torch
 
 from bfqzip_tpu_torch import alphabet
 from bfqzip_tpu_torch.config import SmoothConfig
-from bfqzip_tpu_torch.io.fastq import ReadBatch, format_fastq, write_fastq
+from bfqzip_tpu_torch.io.fastq import ReadBatch, fastq_array, write_fastq
 from bfqzip_tpu_torch.io.spill import Spill
 from bfqzip_tpu_torch.utils import native
 from bfqzip_tpu_torch.engine import resolve_device
@@ -637,7 +637,7 @@ def _run(batch, cfg, mem_bytes, dev, seg_len_arg, rpc_arg, sp, out_path, rep, ru
                 seqs[lo:hi] = s_s
                 quals[lo:hi] = q_s
                 if fh is not None:
-                    fh.write(format_fastq(ReadBatch(seqs=s_s, quals=q_s, lengths=lengths_out[lo:hi])))
+                    fh.write(fastq_array(ReadBatch(seqs=s_s, quals=q_s, lengths=lengths_out[lo:hi])))
                 Spill.evict(packed_h, lo * wp * 2, (hi - lo) * wp * 2)
                 Spill.evict(seqs, lo * width, (hi - lo) * width)
                 Spill.evict(quals, lo * width, (hi - lo) * width)

@@ -35,7 +35,7 @@ import torch
 
 from bfqzip_tpu_torch import alphabet
 from bfqzip_tpu_torch.config import PipelineConfig
-from bfqzip_tpu_torch.io.fastq import ReadBatch, format_fastq, read_fastq
+from bfqzip_tpu_torch.io.fastq import ReadBatch, fastq_array, read_fastq
 from bfqzip_tpu_torch.utils import native
 from bfqzip_tpu_torch.convert import batch_to_tensors
 from bfqzip_tpu_torch.engine import resolve_device, smooth_arrays_step, smooth_fastq
@@ -106,7 +106,7 @@ def step1_build(batch: ReadBatch, base: str, log: StepLogger, device) -> None:
             json.dump(meta, f)
 
 
-def _write(path: str, data: bytes) -> None:
+def _write(path: str, data) -> None:
     with span("pipeline.write"), open(path, "wb") as f:
         f.write(data)
 
@@ -117,7 +117,7 @@ def _write_headers(base: str, headers) -> None:
 
 def _write_fq(base: str, batch: ReadBatch, headers) -> None:
     with span("pipeline.format_fastq"):
-        data = format_fastq(batch, headers=headers)
+        data = fastq_array(batch, headers=headers)
     _write(base + ".fq", data)
 
 

@@ -4,8 +4,8 @@ The port's copy of the codec and FASTQ bindings of
 bfqzip_tpu/utils/native.py, with the same signatures.  FASTQ parsing and
 formatting and the rANS and BQZC codecs load the shared library that
 `make -C native` builds in the repository's native/ directory (at first
-use, if it is missing); parsing and the rANS coder have numpy fallbacks, so
-the package works without it, and BQZC needs it.  The
+use, if it is missing); FASTQ parsing and formatting and the rANS coder
+have numpy fallbacks, so the package works without it, and BQZC needs it.  The
 out-of-core k-way merge is the port's own, csrc/extmerge.cpp, built by
 utils/cuda_build with the host compiler at first use: ext_merge runs it
 while the caller waits, ext_merge_async on a thread whose merged prefix a
@@ -120,30 +120,52 @@ def fastq_format(seqs, quals, lengths, decode_map, headers_blob=None, hoff=None,
     ASCII through decode_map; each header is headers_blob[hoff:hoff + hlen]
     (the offsets fastq_parse returns), or a bare '@' without headers_blob.
     Returns None if the native library is unavailable."""
+    out = fastq_format_array(seqs, quals, lengths, decode_map, headers_blob, hoff, hlen)
+    return None if out is None else out.tobytes()
+
+
+def fastq_format_array(seqs, quals, lengths, decode_map, headers_blob=None, hoff=None,
+                       hlen=None) -> Optional[np.ndarray]:
+    """fastq_format's bytes as a u8 array, without the copy into bytes (a
+    file's write takes the array as it is).  Raises ValueError on a length
+    outside [0, L], a code outside decode_map or a header outside the blob."""
     lib = _find_lib()
     if lib is None:
         return None
     n, w = seqs.shape
-    lengths64 = lengths.astype(np.int64)
-    hsize = int(hlen.sum()) if headers_blob is not None else n  # bare '@'
-    total = int(hsize + n * 3 + 2 * lengths64.sum() + 3 * n)
-    out = np.zeros(total + 16, np.uint8)
-    hb = np.frombuffer(headers_blob, np.uint8) if headers_blob is not None else None
+    if quals.shape != seqs.shape or len(lengths) != n:
+        raise ValueError("seqs, quals and lengths disagree in shape")
+    lengths64 = np.asarray(lengths, np.int64)
+    if n and (lengths64.min() < 0 or lengths64.max() > w):
+        raise ValueError(f"read lengths must lie in [0, {w}]")
+    if seqs.size and int(seqs.max()) >= len(decode_map):
+        raise ValueError(f"base code {int(seqs.max())} outside the decode table")
+    hb = hoff64 = hlen64 = None
+    hsize = n  # a bare '@' a read
+    if headers_blob is not None:
+        hb = np.frombuffer(headers_blob, np.uint8)
+        hoff64, hlen64 = np.ascontiguousarray(hoff, np.int64), np.ascontiguousarray(hlen, np.int64)
+        if hoff64.shape != (n,) or hlen64.shape != (n,):
+            raise ValueError("header offsets and lengths need one entry a read")
+        if n and (hoff64.min() < 0 or hlen64.min() < 0 or (hoff64 + hlen64).max() > hb.size):
+            raise ValueError("header offsets outside the header blob")
+        hsize = int(hlen64.sum())
+    total = int(hsize + 5 * n + 2 * lengths64.sum())  # "\n", "\n+\n", "\n" a read
+    out = np.empty(total, np.uint8)
     # each converted array is named, so it lives until the call returns
-    seqs_c, quals_c = np.ascontiguousarray(seqs), np.ascontiguousarray(quals)
+    seqs_c, quals_c = np.ascontiguousarray(seqs, np.uint8), np.ascontiguousarray(quals, np.uint8)
     lens32 = np.ascontiguousarray(lengths, np.int32)
-    hoff64 = np.ascontiguousarray(hoff, np.int64) if hoff is not None else None
-    hlen64 = np.ascontiguousarray(hlen, np.int64) if hlen is not None else None
+    dmap = np.ascontiguousarray(decode_map, np.uint8)
     written = lib.fastq_format(
-        _ptr(seqs_c), _ptr(quals_c), _ptr(lens32), n, w, _ptr(decode_map),
+        _ptr(seqs_c), _ptr(quals_c), _ptr(lens32), n, w, _ptr(dmap),
         _ptr(hb) if hb is not None else None,
         _ptr(hoff64) if hoff64 is not None else None,
         _ptr(hlen64) if hlen64 is not None else None,
         _ptr(out),
     )
-    if written < 0:
-        raise RuntimeError(f"native fastq_format rc={written}")
-    return out[:written].tobytes()
+    if written != total:
+        raise RuntimeError(f"native fastq_format rc={written} (expected {total})")
+    return out
 
 
 def rans_encode(data: bytes, spec_order: int, lanes: int) -> Optional[bytes]:

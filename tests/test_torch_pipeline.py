@@ -1,7 +1,8 @@
 """The port's pipeline against the JAX pipeline on example.in.fastq: every
 output file except the .log is byte-equal for modes 1, 2, 3 and binning;
 the stage-1 artifact cache (hit, rebuild, invalidation, and artifacts shared
-in both directions); restore / decompress round trips; the -D dump; the
+in both directions); the CLI's .fq through the native formatter and without
+it; restore / decompress round trips; the -D dump; the
 out-of-core route; the 6 long-read goldens through the artifacts; and the
 sequence-sharded mesh route over 4 gloo ranks."""
 
@@ -14,6 +15,8 @@ from bfqzip_tpu.config import PipelineConfig, SmoothConfig
 from bfqzip_tpu_torch.utils import native
 from bfqzip_tpu.pipeline import restore_fastq as jax_restore_fastq
 from bfqzip_tpu.pipeline import run_pipeline as jax_run_pipeline
+from bfqzip_tpu_torch import cli
+from bfqzip_tpu_torch.io import fastq
 from bfqzip_tpu_torch.parallel import mesh
 from bfqzip_tpu_torch.pipeline import decompress_stream, restore_fastq, run_pipeline
 
@@ -163,6 +166,24 @@ def test_original_copies_input(tmp_path):
     run_pipeline([src], cfg, out_base=str(tmp_path / "torch"), device="cpu")
     assert_same_outputs(str(tmp_path / "torch"), str(tmp_path / "jax"))
     assert open(tmp_path / "torch.fq", "rb").read() == open(src, "rb").read()
+
+
+def test_cli_fq_through_the_native_formatter(tmp_path, monkeypatch):
+    """`-0` writes its .fq once through the native formatter when the
+    library loads, once through numpy when it does not, both the golden."""
+    if not native.available():
+        pytest.skip("native library not built")
+    src = str(tmp_path / "reads.fastq")
+    shutil.copyfile(golden_path("example.in.fastq"), src)
+    with open(golden_path("example.m2b0.fq"), "rb") as f:
+        golden = f.read()
+    for route in ("native", "numpy"):
+        if route == "numpy":
+            monkeypatch.setattr(native, "available", lambda: False)
+        before = dict(fastq.format_calls)
+        assert cli.main([src, "-o", str(tmp_path / route), "-0", "--cpu"]) == 0
+        assert fastq.format_calls == dict(before, **{route: before[route] + 1})
+        assert open(tmp_path / f"{route}.fq", "rb").read() == golden
 
 
 def test_mesh_route_byte_equal_to_jax(tmp_path, monkeypatch):
