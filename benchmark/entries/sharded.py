@@ -18,10 +18,12 @@ This is the library's API with the ranks kept alive between calls; the
 CLI's `--mesh D` (smooth_fastq_sharded(shards=D)) spawns the ranks, starts
 the group and moves the batch through shared-memory tensors in every call,
 which this entry does once in set-up or not at all.
-The program marks the stages of every call (it waits for the card and
-resets the card's peak counter at each mark) and reports each stage's ms
-and peak bytes, the attempts and the collective bytes; the entry keeps the
-last report and the largest stage peak of each rank.  The traced run
+The program times the stages of every call as spans (`sharded.sort`,
+`.rebalance`, `.smooth`, `.scatter`) with CUDA events, so nothing waits for
+the card; since a report is asked for, it resets the card's peak counter at
+each stage and reads it back (the allocator's bookkeeping).  It reports each
+stage's ms and peak bytes, the attempts and the collective bytes; the entry
+keeps the last report and the largest stage peak of each rank.  The traced run
 profiles every rank over the window (each rank's busy share comes back to
 rank 0) and gathers the ranks' last reports.  The check compares rank 0's
 output with the plain reference, on rank 0's card.
@@ -106,8 +108,9 @@ class _Rank:
 
         cuda = self.dev.type == "cuda"
         if word == CALL:
-            # the program marks its stages on every call, resetting the
-            # card's peak counter at each; its report keeps each stage's peak
+            # the program times its stages with CUDA events, without waiting
+            # for the card, and resets the card's peak counter at each; its
+            # report keeps each stage's ms and peak
             reports = []
             out = smooth_fastq_sharded(self.batch, self.cfg, comm=self.comm, reports=reports)
             self.report = reports[0]

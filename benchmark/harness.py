@@ -116,17 +116,21 @@ def use_checkout_caches() -> None:
 
 
 def load_cell(name: str, manifest: dict, overrides: dict | None = None) -> tuple:
-    """(cell, config, traffic, entry module) of cell `name`; `overrides` are
-    merged into the reads of the configuration and of the traffic."""
+    """(cell, config, traffic, entry module) of cell `name`.  The optional
+    `traffic` key of `overrides` is merged into the traffic (top-level keys,
+    such as `cli_args`); every other key is merged into the reads of the
+    configuration and of the traffic."""
     cell = cell_of(manifest, name)
     config = load_json(HERE, "configs", cell["config"] + ".json")
     traffic = load_json(HERE, "workloads", name + ".json")
     if traffic["config"] != cell["config"]:
         raise Refused(f"workloads/{name}.json names {traffic['config']}, BENCHMARK.json {cell['config']}")
-    if overrides:
-        config = dict(config, reads=dict(config["reads"], **overrides))
+    reads = dict(overrides or {})
+    traffic = dict(traffic, **reads.pop("traffic", {}))
+    if reads:
+        config = dict(config, reads=dict(config["reads"], **reads))
         if "reads" in traffic:
-            traffic = dict(traffic, reads=dict(traffic["reads"], **overrides))
+            traffic = dict(traffic, reads=dict(traffic["reads"], **reads))
     return cell, config, traffic, load_module("entries", traffic["entry"])
 
 
@@ -147,8 +151,10 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
              overrides: dict | None = None, manifest: dict | None = None) -> dict:
     """One run of cell `name`; returns the result line as a dict.
 
-    `device` and `overrides` (merged into the configuration's `reads`) exist
-    for the harness's own tests, which drive a run on the CPU at a small size.
+    `device` and `overrides` (see load_cell: the reads' sizes, and an
+    optional `traffic` dict) exist for the harness's own tests, which drive a
+    run on the CPU at a small size; only they pass `overrides`.  A real run
+    (run.py) passes none, so its configuration and traffic are the files'.
     """
     import torch
 

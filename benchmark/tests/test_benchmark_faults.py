@@ -5,9 +5,12 @@ on the CPU at a small size, with one fault planted in the program (by
 monkeypatching its modules): a step that returns its state unchanged (the
 smoother hands back the EBWT it was given), half of the batch left out (only
 half of the reads are smoothed and returned), and an answer altered where it
-is produced (one base of the inversion's output flipped).  A cell without a
-fault is correct.  A run in whose processes a module of JAX is found once the
-window, the check and the readers are done is refused and prints no result."""
+is produced (one base of the inversion's output flipped).  A one-chip cell's
+faults and size come from tests/faults/<its entry>.py, which plants them in
+the code that entry's call runs; the mesh's from sharded_faults.py.  A cell
+without a fault is correct.  A run in whose processes a module of JAX is
+found once the window, the check and the readers are done is refused and
+prints no result."""
 
 import json
 import os
@@ -15,9 +18,8 @@ import sys
 import types
 
 import pytest
-import torch
 
-from conftest import ROOT
+from conftest import FAULT_KINDS, ROOT, fault_file
 import harness
 from harness import Refused, run_cell
 
@@ -28,60 +30,13 @@ MESH = [c["name"] for c in WORKLOADS if c["chips"] == 4]
 SEED = 2**31 + 4242
 
 
+def _faults(cell):
+    """The fault file of the entry that cell `cell`'s traffic names."""
+    return fault_file(harness.load_json(harness.HERE, "workloads", cell + ".json")["entry"])
+
+
 def _run(cell):
-    return run_cell(cell, SEED, 0.2, trace=False, device="cpu", overrides={"count": 1200})
-
-
-def state_unchanged(monkeypatch):
-    from bfqzip_tpu_torch import engine
-    from bfqzip_tpu_torch.ops.smooth import SmoothOut
-
-    def smooth(ebwt, cfg, pre=None, ops=None):
-        zero = torch.zeros((), dtype=torch.int64)
-        stats = {k: zero for k in ("num_clust", "num_clust_discarded", "num_clust_amb_discarded",
-                                   "num_clust_mod", "num_clust_alleq", "bases_inside",
-                                   "modified", "qs_smoothed")}
-        return SmoothOut(bwt_sub=ebwt.bwt, qs=ebwt.qs, stats=stats)
-
-    monkeypatch.setattr(engine, "smooth", smooth)
-
-
-def half_left_out(monkeypatch):
-    from bfqzip_tpu_torch import engine, pipeline
-    from bfqzip_tpu_torch.io.fastq import ReadBatch
-
-    real_step = engine.smooth_step
-
-    def smooth_step(seqs, quals, lengths, cfg):
-        half = seqs.shape[0] // 2
-        inv, stats = real_step(seqs[:half], quals[:half], lengths[:half], cfg)
-        return inv._replace(seqs=torch.cat([inv.seqs, seqs[half:]]),
-                            quals=torch.cat([inv.quals, quals[half:]]),
-                            lengths=torch.cat([inv.lengths, lengths[half:]])), stats
-
-    real_read = pipeline.read_fastq
-
-    def read_fastq(path, *args, **kw):
-        b = real_read(path, *args, **kw)
-        half = b.num_reads // 2
-        return ReadBatch(seqs=b.seqs[:half], quals=b.quals[:half], lengths=b.lengths[:half],
-                         headers=b.headers[:half] if b.headers else None)
-
-    monkeypatch.setattr(engine, "smooth_step", smooth_step)
-    monkeypatch.setattr(pipeline, "read_fastq", read_fastq)
-
-
-def answer_altered(monkeypatch):
-    from bfqzip_tpu_torch import engine
-
-    def flip(out):
-        seqs = out.seqs.clone()
-        seqs[0, 0] = 1 + seqs[0, 0] % 5  # another base code
-        return out._replace(seqs=seqs)
-
-    real_sa, real_lf = engine.invert_via_sa, engine.invert
-    monkeypatch.setattr(engine, "invert_via_sa", lambda *a, **k: flip(real_sa(*a, **k)))
-    monkeypatch.setattr(engine, "invert", lambda *a, **k: flip(real_lf(*a, **k)))
+    return run_cell(cell, SEED, 0.2, trace=False, device="cpu", overrides=_faults(cell).SIZE)
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -114,10 +69,12 @@ def test_jax_loaded_by_the_check_is_refused(monkeypatch, cell):
         _run(cell)
 
 
-@pytest.mark.parametrize("fault", [state_unchanged, half_left_out, answer_altered])
+@pytest.mark.parametrize("fault", FAULT_KINDS)
 @pytest.mark.parametrize("cell", CELLS)
 def test_fault_is_caught(monkeypatch, cell, fault):
-    fault(monkeypatch)
+    faults = _faults(cell).FAULTS
+    assert fault in faults, f"{cell}: no {fault} fault"
+    faults[fault](monkeypatch)
     r = _run(cell)
     assert not r["correct"]
     assert any(v["value"] > v["limit"] for v in r["checks"].values())
