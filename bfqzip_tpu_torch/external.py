@@ -19,7 +19,8 @@ every read is shorter than 255 bp.
      carries stay on the device; clusters that close inside the segment plus
      its halo are applied in the forward pass, the rest by the small phase-B
      fix-ups (_fix_tail, _apply_segment);
-  4. inversion is the host scatter grid[(SA-1) mod n_pad], per segment.
+  4. inversion is the host scatter grid[(SA-1) mod n_pad], per segment,
+     its targets sorted on the device so that the host writes in order.
 
 Differences from the JAX package, none of which changes a byte:
   - the merge is the port's own copy, whose live prefix never shows a range
@@ -32,7 +33,22 @@ Differences from the JAX package, none of which changes a byte:
     so the device holds one chunk;
   - the coordinate dtype is a tensor dtype (int64 beyond 2^31 positions or
     with BFQ_EXT_SA64=1), with no global switch;
-  - a spill directory this function created is closed if a stage raises.
+  - a spill directory this function created is closed if a stage raises;
+  - each segment's scatter takes its (target, output) pairs sorted by
+    target on the device, so the host writes its array in order (in SA
+    order the writes land at random, several times slower and swinging
+    with the host's memory load).
+
+Spans (utils/profiling.span, recorded only while tracing): the call
+`external.smooth_fastq` > `external.pack_text`, one `external.sort_chunk` a
+chunk (the device sort, its copies to the host and their store into the
+host arrays), `external.merge_wait` each time smoothing blocks on the merge,
+one `external.segment` a segment (uploads, the forward pass, the sort of
+its scatter targets and the download of its packed output), one
+`external.scatter` a segment (the host scatter that inverts it), `external.phase_b` and `external.emit`.  The report's
+`spill` says whether the host arrays went to spill files (a short scratch
+disk falls back to RAM) and `spill_bytes` how many bytes of spill files the
+call made.
 """
 
 from __future__ import annotations
@@ -59,6 +75,7 @@ from bfqzip_tpu_torch.ops.invert import illumina_bin
 from bfqzip_tpu_torch.ops.scan import LOCAL_OPS, LocalScanOps
 from bfqzip_tpu_torch.ops.smooth import apply_words, cluster_words
 from bfqzip_tpu_torch.ops.suffix import PACK6, _spans, build_ebwt, build_route
+from bfqzip_tpu_torch.utils.profiling import span
 
 _LOG = logging.getLogger("bfqzip.external")
 
@@ -263,6 +280,15 @@ def _sort_chunk(batch: ReadBatch, lo: int, hi: int, dev: torch.device):
     return sa, lcp
 
 
+def _in_text_order(sa: np.ndarray, packed: torch.Tensor, n_pad: int):
+    """One segment's inversion sorted on the device: the text positions
+    (SA - 1) mod n_pad of its suffixes in increasing order and their packed
+    outputs, as host arrays, for a host scatter that writes in order."""
+    target, order = torch.sort(torch.remainder(torch.as_tensor(sa).to(packed.device) - 1, n_pad))
+    # CUDA indexes no uint16 tensor: gather the same bits as int16
+    return target.cpu().numpy(), packed.view(torch.int16)[order].view(torch.uint16).cpu().numpy()
+
+
 def _resolve_spill(spill, n_pad: int):
     """(Spill or None, whether this call created it), as the JAX package picks."""
     env_spill = os.environ.get("BFQ_EXT_SPILL")
@@ -311,7 +337,8 @@ def smooth_fastq_external(
     spill: an io.spill.Spill, True (create one), False (in RAM), or None
     (auto: spill beyond 2^26 positions or with BFQ_EXT_SPILL=1).  out_path
     also streams the smoothed FASTQ to disk (headers '@').  report receives
-    per-stage wall seconds and peak-RSS marks, n_chunks and n_segments.
+    per-stage wall seconds and peak-RSS marks, n_chunks and n_segments,
+    `spill` (whether the host arrays are spill files) and `spill_bytes`.
     The underscore knobs pin the chunk and segment sizes (tests force tiny
     ones to exercise every carry path)."""
     cfg = cfg or SmoothConfig()
@@ -323,11 +350,13 @@ def smooth_fastq_external(
     wp = width + 1
     n_pad = n_reads * wp
     sp, own_spill = _resolve_spill(spill, n_pad)
+    rep = report if report is not None else {}
+    rep["spill"] = sp is not None
     try:
         # `running` joins a merge still running when a stage raises, before the spill closes
-        with contextlib.ExitStack() as running:
+        with span("external.smooth_fastq"), contextlib.ExitStack() as running:
             return _run(batch, cfg, mem_bytes, dev, _seg_len, _reads_per_chunk, sp, out_path,
-                        report if report is not None else {}, running)
+                        rep, running)
     except BaseException:
         if own_spill:
             sp.close()
@@ -375,14 +404,17 @@ class _Merge:
             self.handle = native.ext_merge_async(text, qtext, sa_chunks, lcp_chunks=lcp_all,
                                                  out=self.outputs)
         else:
-            native.ext_merge(text, qtext, sa_chunks, lcp_all, out=self.outputs)
+            with span("external.merge_wait"):  # smoothing waits for the whole merge
+                native.ext_merge(text, qtext, sa_chunks, lcp_all, out=self.outputs)
             self.finish()
 
     def wait(self, pos: int) -> None:
         if self.done:
             return
         t = time.time()
-        self.handle.wait_until(pos)
+        if self.handle.merged_prefix() < pos:
+            with span("external.merge_wait"):
+                self.handle.wait_until(pos)
         self.wait_s += time.time() - t
         if self.handle.finished(0):
             self.finish()  # the inputs go as soon as the merge has ended
@@ -419,6 +451,36 @@ class _Merge:
         self.inputs = None
 
 
+def _pack_text(batch: ReadBatch, sp, reads_per_chunk: int):
+    """(text, qtext): the reads as one [n_reads * (width + 1)] text of base
+    codes + 1 (0 past each read's end) and its qualities, in spill files
+    slab by slab when `sp` is a Spill, else in RAM."""
+    n_reads, width = batch.seqs.shape
+    wp = width + 1
+    n_pad = n_reads * wp
+    k = np.arange(wp)[None, :]
+    if sp is None:
+        text = np.where(
+            k < batch.lengths[:, None], np.pad(batch.seqs, ((0, 0), (0, 1))).astype(np.uint8) + 1, 0
+        ).reshape(-1)
+        return text, np.pad(batch.quals, ((0, 0), (0, 1))).reshape(-1)
+    text = sp.alloc("text", (n_pad,), np.uint8)
+    qtext = sp.alloc("qtext", (n_pad,), np.uint8)
+    slab = max(min(reads_per_chunk, (64 << 20) // wp), 1)
+    for lo in range(0, n_reads, slab):
+        hi = min(lo + slab, n_reads)
+        text[lo * wp : hi * wp] = np.where(
+            k < np.asarray(batch.lengths[lo:hi])[:, None],
+            np.pad(np.asarray(batch.seqs[lo:hi]), ((0, 0), (0, 1))).astype(np.uint8) + 1, 0,
+        ).reshape(-1)
+        qtext[lo * wp : hi * wp] = np.pad(np.asarray(batch.quals[lo:hi]), ((0, 0), (0, 1))).reshape(-1)
+        Spill.evict(text, lo * wp, (hi - lo) * wp)
+        Spill.evict(qtext, lo * wp, (hi - lo) * wp)
+        Spill.evict(batch.seqs, lo * width, (hi - lo) * width)
+        Spill.evict(batch.quals, lo * width, (hi - lo) * width)
+    return text, qtext
+
+
 def _run(batch, cfg, mem_bytes, dev, seg_len_arg, rpc_arg, sp, out_path, rep, running):
     n_reads, width = batch.seqs.shape
     wp = width + 1
@@ -432,27 +494,9 @@ def _run(batch, cfg, mem_bytes, dev, seg_len_arg, rpc_arg, sp, out_path, rep, ru
     t_text = time.time()
     route = build_route(width)
     reads_per_chunk = rpc_arg or max(int(mem_bytes / _build_bytes_per_pos(width) / wp), 1)
-    k = np.arange(wp)[None, :]
-    if sp is not None:
-        text = sp.alloc("text", (n_pad,), np.uint8)
-        qtext = sp.alloc("qtext", (n_pad,), np.uint8)
-        slab = max(min(reads_per_chunk, (64 << 20) // wp), 1)
-        for lo in range(0, n_reads, slab):
-            hi = min(lo + slab, n_reads)
-            text[lo * wp : hi * wp] = np.where(
-                k < np.asarray(batch.lengths[lo:hi])[:, None],
-                np.pad(np.asarray(batch.seqs[lo:hi]), ((0, 0), (0, 1))).astype(np.uint8) + 1, 0,
-            ).reshape(-1)
-            qtext[lo * wp : hi * wp] = np.pad(np.asarray(batch.quals[lo:hi]), ((0, 0), (0, 1))).reshape(-1)
-            Spill.evict(text, lo * wp, (hi - lo) * wp)
-            Spill.evict(qtext, lo * wp, (hi - lo) * wp)
-            Spill.evict(batch.seqs, lo * width, (hi - lo) * width)
-            Spill.evict(batch.quals, lo * width, (hi - lo) * width)
-    else:
-        text = np.where(
-            k < batch.lengths[:, None], np.pad(batch.seqs, ((0, 0), (0, 1))).astype(np.uint8) + 1, 0
-        ).reshape(-1)
-        qtext = np.pad(batch.quals, ((0, 0), (0, 1))).reshape(-1)
+    spill_at = sp.allocated if sp is not None else 0
+    with span("external.pack_text"):
+        text, qtext = _pack_text(batch, sp, reads_per_chunk)
 
     n_chunks = -(-n_reads // reads_per_chunk)
     _LOG.info("stage 1: %d reads in %d device chunks of <=%d (%s build)%s", n_reads, n_chunks,
@@ -471,10 +515,11 @@ def _run(batch, cfg, mem_bytes, dev, seg_len_arg, rpc_arg, sp, out_path, rep, ru
     t0 = time.time()
     for ci, lo in enumerate(range(0, n_reads, reads_per_chunk)):
         hi = min(lo + reads_per_chunk, n_reads)
-        sa_c, lcp_c = _sort_chunk(batch, lo, hi, dev)
-        base, nloc = offs[-1], sa_c.shape[0]
-        sa_store[base : base + nloc] = (sa_c.astype(np.int64) + lo * wp).astype(sa_dtype)
-        lcp_store[base : base + nloc] = lcp_c
+        with span("external.sort_chunk"):
+            sa_c, lcp_c = _sort_chunk(batch, lo, hi, dev)
+            base, nloc = offs[-1], sa_c.shape[0]
+            sa_store[base : base + nloc] = (sa_c.astype(np.int64) + lo * wp).astype(sa_dtype)
+            lcp_store[base : base + nloc] = lcp_c
         offs.append(base + nloc)
         if sp is not None:
             Spill.evict(sa_store, base * sa_store.itemsize, nloc * sa_store.itemsize)
@@ -549,15 +594,17 @@ def _run(batch, cfg, mem_bytes, dev, seg_len_arg, rpc_arg, sp, out_path, rep, ru
     for s in range(n_seg):
         # this segment's window, halo included, must be merged and final
         merge.wait(min((s + 1) * seg_len + halo, n))
-        (packed, stats, carries, scalars, tb, tq, tpend, word, close, inclu) = _part1_segment(
-            seg_slice_bp(s), seg_slice(qs_h, s, 0), seg_slice(lcp_h, s, 0),
-            torch.tensor(s * seg_len, dtype=idx_dtype, device=dev), n_t, carries,
-            cfg, seg_len, fix_cap,
-        )
         lo = s * seg_len
         hi = min(lo + seg_len, n)
-        target = (sa_h[lo:hi].astype(np.int64) - 1) % n_pad
-        packed_h[target] = packed[: hi - lo].cpu().numpy()
+        with span("external.segment"):
+            (packed, stats, carries, scalars, tb, tq, tpend, word, close, inclu) = _part1_segment(
+                seg_slice_bp(s), seg_slice(qs_h, s, 0), seg_slice(lcp_h, s, 0),
+                torch.tensor(lo, dtype=idx_dtype, device=dev), n_t, carries,
+                cfg, seg_len, fix_cap,
+            )
+            target, packed_seg = _in_text_order(sa_h[lo:hi], packed[: hi - lo], n_pad)
+        with span("external.scatter"):
+            packed_h[target] = packed_seg
         fw, ac, mod, smo, any_pend, fb = scalars.tolist()
         firsts.append(fw)
         anys.append(bool(ac))
@@ -578,38 +625,39 @@ def _run(batch, cfg, mem_bytes, dev, seg_len_arg, rpc_arg, sp, out_path, rep, ru
                 Spill.evict(arr, plo, seg_len)
             Spill.evict(sa_h, plo * sa_h.itemsize, seg_len * sa_h.itemsize)
         # the next segment's device peak holds none of this one's arrays
-        del packed, stats, scalars, tb, tq, tpend, word, close, inclu
+        del packed, target, packed_seg, stats, scalars, tb, tq, tpend, word, close, inclu
         _LOG.info("stage 2: segment %d/%d done (%.1fs elapsed)", s + 1, n_seg, time.time() - t0)
     del carries
     merge.finish()
 
     # phase B: reverse sweep of the first-close words + the small fix-ups
-    right_carry = np.zeros(n_seg, np.int64)
-    carry = 0
-    for s in range(n_seg - 1, -1, -1):
-        right_carry[s] = carry
-        if anys[s]:
-            carry = firsts[s]
-    for s, (tb, tq, tpend) in tails.items():
-        if right_carry[s] == 0:
-            continue  # no later cluster close: word 0 was already right
-        pk, mod, smo = _fix_tail(upload(tb), upload(tq), upload(tpend), int(right_carry[s]), cfg)
-        idx = np.flatnonzero(tpend)
-        target = (sa_h[s * seg_len + seg_len - fix_cap + idx].astype(np.int64) - 1) % n_pad
-        packed_h[target] = pk.cpu().numpy()[idx]
-        seg_mod[s] += mod
-        seg_smo[s] += smo
-    for s, (word_s, close_s, inclu_s) in fallbacks.items():
-        lo = s * seg_len
-        hi = min(lo + seg_len, n)
-        packed, mod, smo = _apply_segment(
-            seg_slice_bp(s), seg_slice(qs_h, s, 0), upload(word_s), upload(close_s),
-            upload(inclu_s), int(right_carry[s]), min(n - lo, seg_len + 1), cfg, seg_len,
-        )
-        target = (sa_h[lo:hi].astype(np.int64) - 1) % n_pad
-        packed_h[target] = packed.cpu().numpy()[: hi - lo]
-        seg_mod[s] = mod  # the whole-segment recompute replaces the forward pass's
-        seg_smo[s] = smo
+    with span("external.phase_b"):
+        right_carry = np.zeros(n_seg, np.int64)
+        carry = 0
+        for s in range(n_seg - 1, -1, -1):
+            right_carry[s] = carry
+            if anys[s]:
+                carry = firsts[s]
+        for s, (tb, tq, tpend) in tails.items():
+            if right_carry[s] == 0:
+                continue  # no later cluster close: word 0 was already right
+            pk, mod, smo = _fix_tail(upload(tb), upload(tq), upload(tpend), int(right_carry[s]), cfg)
+            idx = np.flatnonzero(tpend)
+            target = (sa_h[s * seg_len + seg_len - fix_cap + idx].astype(np.int64) - 1) % n_pad
+            packed_h[target] = pk.cpu().numpy()[idx]
+            seg_mod[s] += mod
+            seg_smo[s] += smo
+        for s, (word_s, close_s, inclu_s) in fallbacks.items():
+            lo = s * seg_len
+            hi = min(lo + seg_len, n)
+            packed, mod, smo = _apply_segment(
+                seg_slice_bp(s), seg_slice(qs_h, s, 0), upload(word_s), upload(close_s),
+                upload(inclu_s), int(right_carry[s]), min(n - lo, seg_len + 1), cfg, seg_len,
+            )
+            target, packed_seg = _in_text_order(sa_h[lo:hi], packed[: hi - lo], n_pad)
+            packed_h[target] = packed_seg
+            seg_mod[s] = mod  # the whole-segment recompute replaces the forward pass's
+            seg_smo[s] = smo
     stats_acc["modified"] = int(seg_mod.sum())
     stats_acc["qs_smoothed"] = int(seg_smo.sum())
     rep["n_segments"] = n_seg
@@ -617,32 +665,34 @@ def _run(batch, cfg, mem_bytes, dev, seg_len_arg, rpc_arg, sp, out_path, rep, ru
 
     # ---- stage 3: emission (the scatters above were the inversion) ----
     t_emit = time.time()
-    lengths_out = np.asarray(batch.lengths).astype(np.int32)
-    if sp is None:
-        grid = packed_h.reshape(n_reads, wp)
-        seqs = (grid[:, :width] & 0xFF).astype(np.uint8)
-        quals = ((grid[:, :width] >> 8) & 0xFF).astype(np.uint8)
-        if out_path:
-            write_fastq(out_path, ReadBatch(seqs=seqs, quals=quals, lengths=lengths_out), headers=None)
-    else:
-        seqs = sp.alloc("out_seqs", (n_reads, width), np.uint8)
-        quals = sp.alloc("out_quals", (n_reads, width), np.uint8)
-        slab = max((64 << 20) // wp, 1)
-        with open(out_path, "wb") if out_path else contextlib.nullcontext() as fh:
-            for lo in range(0, n_reads, slab):
-                hi = min(lo + slab, n_reads)
-                grid = np.asarray(packed_h[lo * wp : hi * wp]).reshape(hi - lo, wp)
-                s_s = (grid[:, :width] & 0xFF).astype(np.uint8)
-                q_s = ((grid[:, :width] >> 8) & 0xFF).astype(np.uint8)
-                seqs[lo:hi] = s_s
-                quals[lo:hi] = q_s
-                if fh is not None:
-                    fh.write(fastq_array(ReadBatch(seqs=s_s, quals=q_s, lengths=lengths_out[lo:hi])))
-                Spill.evict(packed_h, lo * wp * 2, (hi - lo) * wp * 2)
-                Spill.evict(seqs, lo * width, (hi - lo) * width)
-                Spill.evict(quals, lo * width, (hi - lo) * width)
-        for name in ("packed", "bwt", "qs", "lcp", "pre", "sa"):
-            sp.drop(name)
+    with span("external.emit"):
+        lengths_out = np.asarray(batch.lengths).astype(np.int32)
+        if sp is None:
+            grid = packed_h.reshape(n_reads, wp)
+            seqs = (grid[:, :width] & 0xFF).astype(np.uint8)
+            quals = ((grid[:, :width] >> 8) & 0xFF).astype(np.uint8)
+            if out_path:
+                write_fastq(out_path, ReadBatch(seqs=seqs, quals=quals, lengths=lengths_out), headers=None)
+        else:
+            seqs = sp.alloc("out_seqs", (n_reads, width), np.uint8)
+            quals = sp.alloc("out_quals", (n_reads, width), np.uint8)
+            slab = max((64 << 20) // wp, 1)
+            with open(out_path, "wb") if out_path else contextlib.nullcontext() as fh:
+                for lo in range(0, n_reads, slab):
+                    hi = min(lo + slab, n_reads)
+                    grid = np.asarray(packed_h[lo * wp : hi * wp]).reshape(hi - lo, wp)
+                    s_s = (grid[:, :width] & 0xFF).astype(np.uint8)
+                    q_s = ((grid[:, :width] >> 8) & 0xFF).astype(np.uint8)
+                    seqs[lo:hi] = s_s
+                    quals[lo:hi] = q_s
+                    if fh is not None:
+                        fh.write(fastq_array(ReadBatch(seqs=s_s, quals=q_s, lengths=lengths_out[lo:hi])))
+                    Spill.evict(packed_h, lo * wp * 2, (hi - lo) * wp * 2)
+                    Spill.evict(seqs, lo * width, (hi - lo) * width)
+                    Spill.evict(quals, lo * width, (hi - lo) * width)
+            for name in ("packed", "bwt", "qs", "lcp", "pre", "sa"):
+                sp.drop(name)
     out = ReadBatch(seqs=seqs, quals=quals, lengths=lengths_out, headers=batch.headers)
+    rep["spill_bytes"] = sp.allocated - spill_at if sp is not None else 0
     mark("emit", t_emit)
     return out, stats_acc

@@ -38,6 +38,7 @@ class Spill:
         self.dir = tempfile.mkdtemp(prefix="bfqspill_", dir=base)
         self.keep = keep
         self._arrays: Dict[str, np.memmap] = {}
+        self.allocated = 0  # bytes of every array alloc() has made, replaced ones included
         self._closed = False
         atexit.register(self.close)
 
@@ -46,6 +47,7 @@ class Spill:
         path = os.path.join(self.dir, name)
         mm = np.memmap(path, dtype=dtype, mode="w+", shape=shape)
         self._arrays[name] = mm
+        self.allocated += mm.nbytes
         return mm
 
     @staticmethod
@@ -150,8 +152,16 @@ def read_fastq_spill(path: str, spill: Spill, with_headers: bool = False,
     record-aligned slabs of ~slab_bytes, evicting each slab's file pages and
     output rows as it goes — peak residency is one slab.
 
-    Returns a ReadBatch whose seqs/quals are memmaps in `spill`.
+    Returns a ReadBatch whose seqs/quals are memmaps in `spill`.  The
+    call is the span `io.read_fastq_spill`.
     """
+    from bfqzip_tpu_torch.utils.profiling import span
+
+    with span("io.read_fastq_spill"):
+        return _read_fastq_spill(path, spill, with_headers, slab_bytes)
+
+
+def _read_fastq_spill(path: str, spill: Spill, with_headers: bool, slab_bytes: int):
     from bfqzip_tpu_torch import alphabet
     from bfqzip_tpu_torch.io.fastq import ReadBatch, read_fastq
     from bfqzip_tpu_torch.utils import native

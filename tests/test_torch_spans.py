@@ -1,10 +1,12 @@
 """The port's spans (utils/profiling.span): nothing recorded or opened while
 recording is off; parent, call and self time inside recording(); the
 profiler's annotations of smooth_fastq nested as the spans are, on the
-spans' clock; the CLI's spans with its OUT.log unchanged; the sharded
-path's reports built only when asked for; and the benchmark's span readers
-on hand-made span lists."""
+spans' clock; the CLI's spans with its OUT.log unchanged; the out-of-core
+route's spans, one a chunk and one a segment, and its spill counter; the
+sharded path's reports built only when asked for; and the benchmark's span
+readers on hand-made span lists."""
 
+import ast
 import importlib.util
 import json
 import os
@@ -16,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from bfqzip_tpu_torch import cli
+from bfqzip_tpu_torch import cli, external
 from bfqzip_tpu_torch.config import SmoothConfig
 from bfqzip_tpu_torch.engine import smooth_fastq
 from bfqzip_tpu_torch.io.fastq import read_fastq
@@ -192,6 +194,45 @@ def test_cli_spans_and_unchanged_log(tmp_path):
     assert all(p["seconds"] >= 0 for p in phases)
 
 
+@pytest.mark.parametrize("short_disk", [False, True], ids=["spill", "short_disk"])
+def test_ext_mem_spans_and_spill(tmp_path, monkeypatch, capsys, short_disk):
+    """One external.sort_chunk a chunk and one external.segment a segment,
+    as many as the report counts, every span under cli.main; `spill` true
+    with spill files, false when the scratch disk is too short for them."""
+    monkeypatch.setenv("BFQ_SPILL_DIR", str(tmp_path))
+    if short_disk:
+        real = shutil.disk_usage
+        monkeypatch.setattr(external.shutil, "disk_usage", lambda p: real(p)._replace(free=1 << 20))
+    rng = np.random.default_rng(5)
+    n, width = 700, 101  # 71,400 positions: two segments, chunks of 101 reads under 2 MB
+    seqs = rng.choice(np.frombuffer(b"ACGT", np.uint8), (n, width))
+    quals = rng.integers(35, 75, (n, width), dtype=np.uint8)
+    src = str(tmp_path / "reads.fastq")
+    with open(src, "wb") as f:
+        for i in range(n):
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, seqs[i].tobytes(), quals[i].tobytes()))
+    base = str(tmp_path / "out")
+    with profiling.recording():
+        assert cli.main([src, "-o", base, "-0", "--ext-mem", "--mem", "2", "-v", "1", "--cpu"]) == 0
+    line = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("external: ")]
+    report = ast.literal_eval(line[0][len("external: "):])
+    spans = profiling.spans()
+    root = spans[0]
+    assert root["name"] == "cli.main" and all(s["call"] == root["id"] for s in spans)
+    names = [s["name"] for s in spans]
+    assert report["n_chunks"] >= 2 and report["n_segments"] >= 2
+    assert names.count("external.sort_chunk") == report["n_chunks"]
+    assert names.count("external.segment") == names.count("external.scatter") == report["n_segments"]
+    for name in ("io.read_fastq_spill", "external.smooth_fastq", "external.pack_text",
+                 "external.phase_b", "external.emit"):
+        assert names.count(name) == 1, name
+    call = next(s for s in spans if s["name"] == "external.smooth_fastq")
+    assert all(s["parent"] == call["id"] for s in spans if s["name"].startswith("external.")
+               and s is not call)
+    assert report["spill"] is not short_disk
+    assert (report["spill_bytes"] > 21 * n * (width + 1) // 2) is not short_disk
+
+
 def test_sharded_report_only_when_asked(tmp_path):
     rng = np.random.default_rng(3)
     n, width = 32, 12
@@ -313,3 +354,57 @@ def test_span_cost_tool_on_the_cpu(capsys):
         assert got["reads"] == reads and len(got["on_s"]) == len(got["off_s"]) == 2
         assert got["on"]["q1"] <= got["on"]["median"] <= got["on"]["q3"]
     assert profiling.spans() == []  # each "on" call's spans were read and forgotten
+
+
+def _ext_spans():
+    spans = []
+    for c in (1, 100):  # two out-of-core files
+        spans += [_s("cli.main", c, host_ms=60000.0),
+                  _s("external.smooth_fastq", c + 1, c, c, host_ms=50000.0),
+                  _s("external.sort_chunk", c + 2, c + 1, c, device_ms=4000.0 + c),
+                  _s("external.sort_chunk", c + 3, c + 1, c, device_ms=2000.0),
+                  _s("external.merge_wait", c + 4, c + 1, c, host_ms=3000.0 + c),
+                  _s("external.segment", c + 5, c + 1, c, device_ms=1500.0),
+                  _s("external.scatter", c + 6, c + 1, c, host_ms=2500.0 + c),
+                  _s("external.segment", c + 7, c + 1, c, device_ms=900.0 + c),
+                  _s("external.scatter", c + 8, c + 1, c, host_ms=1200.0),
+                  _s("external.emit", c + 9, c + 1, c, host_ms=4000.0 + c)]
+    return spans
+
+
+EXT_READERS = {
+    "external.sort_chunk_span_ms": 6000.0 + 50.5,
+    "external.segment_span_ms": 2400.0 + 50.5,
+    "external.merge_wait_s": (3000.0 + 50.5) / 1e3,
+    "external.scatter_s": (3700.0 + 50.5) / 1e3,
+    "external.emit_s": (4000.0 + 50.5) / 1e3,
+}
+
+
+@pytest.mark.parametrize("name", sorted(EXT_READERS))
+def test_ext_reader_on_hand_made_spans(name, monkeypatch):
+    monkeypatch.setattr(profiling, "spans", _ext_spans)
+    assert _load("metrics", name).read({}) == pytest.approx(EXT_READERS[name])
+    monkeypatch.setattr(profiling, "spans", list)
+    assert _load("metrics", name).read({}) is None
+    monkeypatch.delattr(profiling, "spans")  # a program without spans
+    assert _load("metrics", name).read({}) is None
+
+
+@pytest.mark.parametrize("name", [n for n in sorted(EXT_READERS) if n.endswith("span_ms")])
+def test_ext_device_reader_reads_nothing_without_device_times(name, monkeypatch):
+    spans = [dict(s, device_ms=None) for s in _ext_spans()]
+    monkeypatch.setattr(profiling, "spans", lambda: spans)
+    assert _load("metrics", name).read({}) is None
+
+
+def test_ext_merge_wait_reads_zero_when_the_merge_never_blocked(monkeypatch):
+    spans = [s for s in _ext_spans() if s["name"] != "external.merge_wait"]
+    monkeypatch.setattr(profiling, "spans", lambda: spans)
+    assert _load("metrics", "external.merge_wait_s").read({}) == 0.0
+
+
+def test_ext_peak_rss_reader():
+    reader = _load("metrics", "external.peak_rss_gb")
+    assert reader.read({"rss": {"start": 2_000_000_000, "peak": 5_500_000_000}}) == pytest.approx(3.5)
+    assert reader.read({"rss": None}) is None and reader.read({}) is None
