@@ -87,13 +87,16 @@ def _artifacts_exist(base: str, fingerprint: Optional[str] = None) -> bool:
     return meta.get("fingerprint") == fingerprint
 
 
-def step1_build(batch: ReadBatch, base: str, log: StepLogger, device) -> None:
+def step1_build(batch: ReadBatch, base: str, log: StepLogger, device):
     """EBWT + QS + LCP artifacts.  The batch is built as it is: the JAX
     package's compile-shape padding rows are inert, so the artifacts are the
-    same bytes.  The step's time includes writing them."""
+    same bytes.  The step's time includes writing them.  Returns step 3's
+    input as load_artifacts would read it back from these files, kept on
+    the card (`_held_arrays`)."""
     with log.step("step1: EBWT+QS+LCP construction"):
         ebwt = build_ebwt(*batch_to_tensors(batch, device))
         n = int(ebwt.n)
+        held = _held_arrays(ebwt, n)
         bwt = ebwt.bwt[:n].cpu().numpy()
         qs = ebwt.qs[:n].cpu().numpy()
         lcp = ebwt.lcp[:n].cpu().numpy()
@@ -104,6 +107,7 @@ def step1_build(batch: ReadBatch, base: str, log: StepLogger, device) -> None:
             _write(base + ext, data.tobytes())
         with span("pipeline.write"), open(_meta_path(base), "w") as f:
             json.dump(meta, f)
+    return held, meta
 
 
 def _write(path: str, data) -> None:
@@ -121,6 +125,27 @@ def _write_fq(base: str, batch: ReadBatch, headers) -> None:
     _write(base + ".fq", data)
 
 
+def _padded(n: int) -> int:
+    """Step 3's array length for n positions: the next multiple of 1024."""
+    return ((n + 1023) // 1024) * 1024
+
+
+def _held_arrays(ebwt, n: int):
+    """load_artifacts' arrays made on the card from the build: bwt, qs and
+    lcp cut to n and padded to a multiple of 1024 with bwt=SIGMA, qs=0,
+    lcp=0, lcp as the .lcp file's <u2 gives it back, and n."""
+    with span("pipeline.load_artifacts"):
+        size = _padded(n)
+        dev = ebwt.bwt.device
+        bwt = torch.full((size,), alphabet.SIGMA, dtype=torch.uint8, device=dev)
+        bwt[:n] = ebwt.bwt[:n]
+        qs = torch.zeros(size, dtype=torch.uint8, device=dev)
+        qs[:n] = ebwt.qs[:n]
+        lcp = torch.zeros(size, dtype=torch.int32, device=dev)
+        torch.bitwise_and(ebwt.lcp[:n], 0xFFFF, out=lcp[:n])
+        return bwt, qs, lcp, torch.tensor(n, dtype=torch.int32, device=dev)
+
+
 def load_artifacts(base: str, device):
     """The stage-1 artifacts as ((bwt, qs, lcp, n), meta): the arrays on
     `device`, padded to a multiple of 1024 with bwt=SIGMA, qs=0, lcp=0, and
@@ -129,7 +154,7 @@ def load_artifacts(base: str, device):
         with open(_meta_path(base)) as f:
             meta = json.load(f)
         n = meta["n"]
-        pad = ((n + 1023) // 1024) * 1024 - n
+        pad = _padded(n) - n
         bwt = np.pad(alphabet.encode(np.fromfile(base + ".bwt", np.uint8)), (0, pad),
                      constant_values=alphabet.SIGMA)
         qs = np.pad(np.fromfile(base + ".bwt.qs", np.uint8), (0, pad))
@@ -138,9 +163,13 @@ def load_artifacts(base: str, device):
         return (*arrays, torch.tensor(n, dtype=torch.int32, device=device)), meta
 
 
-def step3_smooth(base: str, cfg: PipelineConfig, log: StepLogger, device, debug_dump: bool = False):
-    """Cluster smoothing + inversion from the stage-1 artifacts."""
-    (bwt, qs, lcp, n_t), meta = load_artifacts(base, device)
+def step3_smooth(base: str, cfg: PipelineConfig, log: StepLogger, device, debug_dump: bool = False,
+                 held=None):
+    """Cluster smoothing + inversion from the stage-1 artifacts: `held`,
+    step1_build's return when step 1 ran in this call, else load_artifacts
+    reads them from the files.  The span `pipeline.load_artifacts` times
+    either route: the on-card cut and pad in step 1, or the file reads."""
+    (bwt, qs, lcp, n_t), meta = held if held is not None else load_artifacts(base, device)
     n = meta["n"]
     with log.step("step3: cluster smoothing + inversion"):
         inv, bwt_sub, qs_new, stats = smooth_arrays_step(
@@ -440,13 +469,15 @@ def run_pipeline(
         result.report["sharded"] = sharded_reports  # per rank: attempts, stage ms, bytes
         return result
 
-    # ---- step 1 with artifact caching, content-keyed ----
+    # ---- step 1 with artifact caching, content-keyed; step 3 takes the
+    # arrays of a step 1 run in this call on the card ----
+    held = None
     if cfg.rebuild or not _artifacts_exist(base, _fingerprint(batch)):
         if blocks and blocks > 1:
             _blockwise_step1_3(batch, base, cfg, blocks, log, device, paired_split=paired_split)
             smoothed, stats = _load_fq(base), {}
         else:
-            step1_build(batch, base, log, device)
+            held = step1_build(batch, base, log, device)
             smoothed = None
     else:
         log.info("step1: artifacts cached, skipping (use rebuild to force)")
@@ -459,14 +490,19 @@ def run_pipeline(
 
     # ---- step 3 (+4) ----
     stats: Dict[str, int] = {}
+    step3_input = None
     if cfg.original:
         with log.step("step3: --original (copy input)"):
             shutil.copyfile(inputs[0], base + ".fq")
     elif smoothed is None:
-        smoothed, stats = step3_smooth(base, cfg, log, device, debug_dump=debug_dump)
+        step3_input = "files" if held is None else "held"
+        smoothed, stats = step3_smooth(base, cfg, log, device, debug_dump=debug_dump, held=held)
         _write_fq(base, smoothed, batch.headers if headers_on else None)
 
-    return _finish_pipeline(inputs, cfg, base, log, stats, paired_split)
+    result = _finish_pipeline(inputs, cfg, base, log, stats, paired_split)
+    if step3_input is not None:
+        result.report["step3_input"] = step3_input  # "held": step 1's arrays on the card
+    return result
 
 
 def _write_smoothed(batch: ReadBatch, smoothed: ReadBatch, base: str, cfg: PipelineConfig) -> None:

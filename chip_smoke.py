@@ -662,8 +662,9 @@ def _read(path: str) -> bytes:
 
 
 def cli_path(batch, native_make) -> dict:
-    """Phase 6: the CLI through the cached-artifact path at 2M reads, and
-    the codec path (compress, restore, decompress) at 200K reads."""
+    """Phase 6: the CLI at 2M reads, step 3 first on step 1's arrays and
+    then through the cached artifacts, and the codec path (compress,
+    restore, decompress) at 200K reads."""
     import torch
 
     from bfqzip_tpu_torch import SmoothConfig
@@ -714,6 +715,9 @@ def cli_path(batch, native_make) -> dict:
         fail("the second CLI run did not reuse the step-1 artifacts")
     if _read(out + ".fq") != fq:
         fail("the cached CLI run wrote other bytes")
+    if [r.get("step3_input") for r in reports] != ["held", "files"]:
+        fail("step 3 took its input from "
+             f"{[r.get('step3_input') for r in reports]}, expected step 1's arrays, then the files")
     del fq
 
     # step 3's parts on the artifacts, each timed alone

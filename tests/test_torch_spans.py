@@ -192,6 +192,24 @@ def test_cli_spans_and_unchanged_log(tmp_path):
     assert [p["phase"] for p in phases] == ["read FASTQ", "step1: EBWT+QS+LCP construction",
                                             "step3: cluster smoothing + inversion"]
     assert all(p["seconds"] >= 0 for p in phases)
+    # step 3 takes step 1's arrays: one pipeline.load_artifacts, the on-card
+    # cut and pad inside step 1
+    by_id = {s["id"]: s["name"] for s in spans}
+    loads = [s for s in spans if s["name"] == "pipeline.load_artifacts"]
+    assert len(loads) == 1 and by_id[loads[0]["parent"]] == "step.step1: EBWT+QS+LCP construction"
+
+    # a re-run on the same base reads the cached artifacts: one
+    # pipeline.load_artifacts, the file reads before step 3
+    os.remove(base + ".fq")
+    profiling.clear_spans()
+    with profiling.recording():
+        assert cli.main([src, "-o", base, "-0", "--cpu"]) == 0
+    spans = profiling.spans()
+    names = [s["name"] for s in spans]
+    assert names.count("pipeline.load_artifacts") == 1
+    assert "step.step1: EBWT+QS+LCP construction" not in names
+    load = next(s for s in spans if s["name"] == "pipeline.load_artifacts")
+    assert load["parent"] == spans[0]["id"] and spans[0]["name"] == "cli.main"
 
 
 @pytest.mark.parametrize("short_disk", [False, True], ids=["spill", "short_disk"])
