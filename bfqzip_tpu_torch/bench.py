@@ -21,7 +21,7 @@ already lie on the device, without smooth_fastq's host copies.
 
 Prints one JSON line.  No `vs_baseline`: bench.py's reference rate was
 measured on another host, not on this card's.  Without --cpu it needs a
-card (engine.resolve_device raises otherwise).
+card (utils.profiling.resolve_device raises otherwise).
 """
 
 from __future__ import annotations
@@ -39,13 +39,13 @@ import torch
 from bfqzip_tpu_torch import alphabet
 from bfqzip_tpu_torch.config import SmoothConfig
 from bfqzip_tpu_torch.convert import batch_to_tensors
-from bfqzip_tpu_torch.engine import resolve_device, smooth_step
+from bfqzip_tpu_torch.engine import smooth_step
 from bfqzip_tpu_torch.io.fastq import ReadBatch
 from bfqzip_tpu_torch.ops import cuda_scan
 from bfqzip_tpu_torch.ops.invert import invert_via_sa
 from bfqzip_tpu_torch.ops.smooth import smooth
 from bfqzip_tpu_torch.ops.suffix import build_ebwt
-from bfqzip_tpu_torch.utils.profiling import device_info
+from bfqzip_tpu_torch.utils.profiling import device_info, resolve_device
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCOPE = "smooth_step on device-resident inputs"

@@ -110,7 +110,7 @@ def _main(argv) -> int:
         return 0
 
     from bfqzip_tpu_torch.config import PipelineConfig, SmoothConfig
-    from bfqzip_tpu_torch.engine import resolve_device
+    from bfqzip_tpu_torch.utils.profiling import resolve_device
     from bfqzip_tpu_torch.pipeline import run_pipeline
 
     mode = 1

@@ -70,12 +70,11 @@ from bfqzip_tpu_torch.config import SmoothConfig
 from bfqzip_tpu_torch.io.fastq import ReadBatch, fastq_array, write_fastq
 from bfqzip_tpu_torch.io.spill import Spill
 from bfqzip_tpu_torch.utils import native
-from bfqzip_tpu_torch.engine import resolve_device
 from bfqzip_tpu_torch.ops.invert import illumina_bin
 from bfqzip_tpu_torch.ops.scan import LOCAL_OPS, LocalScanOps
 from bfqzip_tpu_torch.ops.smooth import apply_words, cluster_words
 from bfqzip_tpu_torch.ops.suffix import PACK6, _spans, build_ebwt, build_route
-from bfqzip_tpu_torch.utils.profiling import span
+from bfqzip_tpu_torch.utils.profiling import resolve_device, span
 
 _LOG = logging.getLogger("bfqzip.external")
 

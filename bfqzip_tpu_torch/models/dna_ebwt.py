@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from bfqzip_tpu_torch import alphabet
-from bfqzip_tpu_torch.engine import resolve_device
+from bfqzip_tpu_torch.utils.profiling import resolve_device
 from bfqzip_tpu_torch.ops import rans
 from bfqzip_tpu_torch.ops.invert import invert
 from bfqzip_tpu_torch.ops.rank import lf_array

@@ -29,7 +29,7 @@ import torch.distributed as dist
 
 from bfqzip_tpu_torch.config import SmoothConfig
 from bfqzip_tpu_torch.convert import batch_to_tensors
-from bfqzip_tpu_torch.engine import resolve_device
+from bfqzip_tpu_torch.utils.profiling import resolve_device
 from bfqzip_tpu_torch.io.fastq import ReadBatch
 from bfqzip_tpu_torch.parallel.comm import Comm
 from bfqzip_tpu_torch.parallel.global_pipeline import smooth_rank

@@ -19,6 +19,10 @@ block after another on the device.  Out-of-core (`ext_mem_mb`) fuses steps
 JAX pipeline does, and skips the artifacts.  So does the sequence-sharded
 route (`mesh_shards` > 1): ONE global EBWT over that many ranks
 (parallel/global_pipeline.py), one card each on CUDA, gloo ranks on the CPU.
+
+Every route hands back its smoothed reads in input order and writes no
+.fq; one writer (_write_smoothed) formats them once, and steps 4-5 cut the
+streams and the paired _1/_2 halves from the bytes it formatted.
 """
 
 from __future__ import annotations
@@ -38,12 +42,12 @@ from bfqzip_tpu_torch.config import PipelineConfig
 from bfqzip_tpu_torch.io.fastq import ReadBatch, fastq_array, read_fastq
 from bfqzip_tpu_torch.utils import native
 from bfqzip_tpu_torch.convert import batch_to_tensors
-from bfqzip_tpu_torch.engine import resolve_device, smooth_arrays_step, smooth_fastq
+from bfqzip_tpu_torch.engine import smooth_arrays_step, smooth_fastq
 from bfqzip_tpu_torch.ops import rans
 from bfqzip_tpu_torch.ops.suffix import build_ebwt
 from bfqzip_tpu_torch.parallel import mesh
 from bfqzip_tpu_torch.utils.logging import StepLogger
-from bfqzip_tpu_torch.utils.profiling import span
+from bfqzip_tpu_torch.utils.profiling import resolve_device, span
 
 ZIP7 = shutil.which("7z")
 BSC = shutil.which("bsc")
@@ -72,27 +76,28 @@ def _fingerprint(batch: ReadBatch) -> str:
         return h.hexdigest()
 
 
-def _artifacts_exist(base: str, fingerprint: Optional[str] = None) -> bool:
+def _recorded_fingerprint(base: str) -> Optional[str]:
+    """The fingerprint in meta.json when every stage-1 artifact exists at
+    `base`, else None."""
     if not all(
         os.path.exists(base + ext) for ext in (".bwt", ".bwt.qs", ".lcp", ".meta.json")
     ):
-        return False
-    if fingerprint is None:
-        return True
+        return None
     try:
         with open(_meta_path(base)) as f:
-            meta = json.load(f)
+            return json.load(f).get("fingerprint")
     except (OSError, ValueError):
-        return False
-    return meta.get("fingerprint") == fingerprint
+        return None
 
 
-def step1_build(batch: ReadBatch, base: str, log: StepLogger, device):
+def step1_build(batch: ReadBatch, base: str, log: StepLogger, device,
+                fingerprint: Optional[str] = None):
     """EBWT + QS + LCP artifacts.  The batch is built as it is: the JAX
     package's compile-shape padding rows are inert, so the artifacts are the
-    same bytes.  The step's time includes writing them.  Returns step 3's
-    input as load_artifacts would read it back from these files, kept on
-    the card (`_held_arrays`)."""
+    same bytes.  The step's time includes writing them.  meta.json records
+    `fingerprint`, the batch's _fingerprint, hashed here when not given.
+    Returns step 3's input as load_artifacts would read it back from these
+    files, kept on the card (`_held_arrays`)."""
     with log.step("step1: EBWT+QS+LCP construction"):
         ebwt = build_ebwt(*batch_to_tensors(batch, device))
         n = int(ebwt.n)
@@ -102,7 +107,7 @@ def step1_build(batch: ReadBatch, base: str, log: StepLogger, device):
         lcp = ebwt.lcp[:n].cpu().numpy()
         del ebwt
         meta = {"n": n, "n_reads": batch.num_reads, "max_len": batch.max_len,
-                "fingerprint": _fingerprint(batch)}
+                "fingerprint": fingerprint or _fingerprint(batch)}
         for ext, data in ((".bwt", alphabet.decode(bwt)), (".bwt.qs", qs), (".lcp", lcp.astype("<u2"))):
             _write(base + ext, data.tobytes())
         with span("pipeline.write"), open(_meta_path(base), "w") as f:
@@ -115,14 +120,33 @@ def _write(path: str, data) -> None:
         f.write(data)
 
 
-def _write_headers(base: str, headers) -> None:
-    _write(base + ".h", b"\n".join(headers) + b"\n")
-
-
-def _write_fq(base: str, batch: ReadBatch, headers) -> None:
+def _write_smoothed(batch: ReadBatch, smoothed: ReadBatch, base: str, headers) -> np.ndarray:
+    """The one writer of BASE.fq: `smoothed`, a route's reads for `batch` in
+    input order, formatted once with `headers` (None: bare '@' lines).
+    Returns the .fq's bytes, which steps 4 and the paired re-split cut."""
+    if smoothed.num_reads != batch.num_reads:
+        raise ValueError(f"{smoothed.num_reads} smoothed reads for {batch.num_reads} parsed")
     with span("pipeline.format_fastq"):
-        data = fastq_array(batch, headers=headers)
+        data = fastq_array(smoothed, headers=headers)
     _write(base + ".fq", data)
+    return data
+
+
+def _line_starts(data):
+    """A FASTQ body as a u8 array and the offsets where its lines start:
+    line i of data.split(b"\\n") is buf[starts[i]:starts[i + 1] - 1], and the
+    last line, which no newline ends, is buf[starts[-1]:]."""
+    buf = np.frombuffer(data, np.uint8)
+    return buf, np.concatenate(([0], np.flatnonzero(buf == ord("\n")) + 1))
+
+
+def _every_fourth(buf: np.ndarray, starts: np.ndarray, first: int):
+    """b"\\n".join(lines[first::4]) + b"\\n" of the body's lines: each kept
+    line with its newline, one appended where none follows."""
+    keep = np.zeros(len(starts), bool)
+    keep[first::4] = True
+    out = buf[np.repeat(keep, np.diff(starts, append=len(buf)))]
+    return np.append(out, np.uint8(ord("\n"))) if keep[-1] or not keep.any() else out
 
 
 def _padded(n: int) -> int:
@@ -256,16 +280,13 @@ def _pair_paths(out_path: str):
     return root + "_1" + ext, root + "_2" + ext
 
 
-def _split_pair(data: bytes, n1: int):
-    """Split a merged FASTQ body (file-1 records then file-2 records) at the
-    recorded mate boundary."""
-    cut = 0
-    for _ in range(4 * n1):
-        nl = data.find(b"\n", cut)
-        if nl < 0:
-            raise ValueError(f"merged archive has fewer than {n1} file-1 records")
-        cut = nl + 1
-    return data[:cut], data[cut:]
+def _split_pair(data, n1: int):
+    """Split a merged FASTQ body (file-1 records then file-2 records) just
+    past its 4*n1-th newline: the mate boundary of compression and restore."""
+    starts = _line_starts(data)[1]
+    if 4 * n1 >= len(starts):
+        raise ValueError(f"merged archive has fewer than {n1} file-1 records")
+    return data[:starts[4 * n1]], data[starts[4 * n1]:]
 
 
 def _write_pair(out_path: str, body: bytes, n1: int):
@@ -432,112 +453,105 @@ def run_pipeline(
                 batches = [reorder_batch(batches[0], mode=reorder)]
 
     batch = batches[0] if len(batches) == 1 else _concat(batches)
+    headers = batch.headers if (cfg.headers or cfg.mode == 3) else None
 
-    # ---- out-of-core: chunked device sorts + native host merge + streaming
-    # smoothing under a device-memory budget; steps 1-3 fuse ----
-    if ext_mem_mb and not cfg.original:
-        from bfqzip_tpu_torch.external import smooth_fastq_external
+    # ---- steps 1-3: one route hands back the smoothed reads in input order
+    # (none under --original); step 2 writes the .h, and the one writer the
+    # .fq, before the out-of-core route's spill files close ----
+    extra: Dict[str, object] = {}
+    fq = None
+    try:
+        if ext_mem_mb and not cfg.original:
+            # chunked device sorts + native host merge + streaming smoothing
+            # under a device-memory budget
+            from bfqzip_tpu_torch.external import smooth_fastq_external
 
-        ext_report: Dict[str, object] = {}
-        try:
+            extra["external"] = {}  # chunk / segment counts, stage seconds and RSS
             with log.step(f"steps1-3: external memory, budget {ext_mem_mb} MB"):
                 smoothed, stats = smooth_fastq_external(
                     batch, cfg.smooth, mem_bytes=ext_mem_mb << 20, device=device, spill=spill,
-                    report=ext_report,
+                    report=extra["external"],
                 )
-            _write_smoothed(batch, smoothed, base, cfg)
-        finally:
-            if spill is not None:
-                spill.close()
-        result = _finish_pipeline(inputs, cfg, base, log, stats, paired_split)
-        result.report["external"] = ext_report  # chunk / segment counts, stage seconds and RSS
-        return result
+        elif sharded:
+            # ONE global EBWT over mesh_shards ranks spawned from this process
+            from bfqzip_tpu_torch.parallel import smooth_fastq_sharded
 
-    # ---- sequence-sharded: ONE global EBWT over mesh_shards ranks spawned
-    # from this process, smoothed and inverted across them; steps 1-3 fuse ----
-    if sharded:
-        from bfqzip_tpu_torch.parallel import smooth_fastq_sharded
-
-        sharded_reports: List[dict] = []
-        with log.step(f"steps1-3: sequence-sharded over {mesh_shards} ranks"):
-            smoothed, stats = smooth_fastq_sharded(
-                batch, cfg.smooth, shards=mesh_shards, device=device,
-                work_dir=os.path.dirname(os.path.abspath(base)), reports=sharded_reports,
-            )
-        _write_smoothed(batch, smoothed, base, cfg)
-        result = _finish_pipeline(inputs, cfg, base, log, stats, paired_split)
-        result.report["sharded"] = sharded_reports  # per rank: attempts, stage ms, bytes
-        return result
-
-    # ---- step 1 with artifact caching, content-keyed; step 3 takes the
-    # arrays of a step 1 run in this call on the card ----
-    held = None
-    if cfg.rebuild or not _artifacts_exist(base, _fingerprint(batch)):
-        if blocks and blocks > 1:
-            _blockwise_step1_3(batch, base, cfg, blocks, log, device, paired_split=paired_split)
-            smoothed, stats = _load_fq(base), {}
+            extra["sharded"] = []  # per rank: attempts, stage ms, bytes
+            with log.step(f"steps1-3: sequence-sharded over {mesh_shards} ranks"):
+                smoothed, stats = smooth_fastq_sharded(
+                    batch, cfg.smooth, shards=mesh_shards, device=device,
+                    work_dir=os.path.dirname(os.path.abspath(base)), reports=extra["sharded"],
+                )
         else:
-            held = step1_build(batch, base, log, device)
-            smoothed = None
-    else:
-        log.info("step1: artifacts cached, skipping (use rebuild to force)")
-        smoothed = None
+            smoothed, stats = _in_memory(batch, base, cfg, log, device, blocks, paired_split,
+                                         debug_dump, extra)
+        if headers is not None:
+            _write(base + ".h", b"\n".join(headers) + b"\n")
+        if cfg.original:
+            with log.step("step3: --original (copy input)"):
+                shutil.copyfile(inputs[0], base + ".fq")
+        else:
+            fq = _write_smoothed(batch, smoothed, base, headers)
+            if paired_split is None and cfg.mode not in (2, 3):
+                fq = None  # no step cuts them: not held through step 5 or the spill's close
+    finally:
+        if spill is not None:
+            spill.close()
 
-    # ---- step 2: headers ----
-    headers_on = cfg.headers or cfg.mode == 3
-    if headers_on and batch.headers is not None:
-        _write_headers(base, batch.headers)
-
-    # ---- step 3 (+4) ----
-    stats: Dict[str, int] = {}
-    step3_input = None
-    if cfg.original:
-        with log.step("step3: --original (copy input)"):
-            shutil.copyfile(inputs[0], base + ".fq")
-    elif smoothed is None:
-        step3_input = "files" if held is None else "held"
-        smoothed, stats = step3_smooth(base, cfg, log, device, debug_dump=debug_dump, held=held)
-        _write_fq(base, smoothed, batch.headers if headers_on else None)
-
-    result = _finish_pipeline(inputs, cfg, base, log, stats, paired_split)
-    if step3_input is not None:
-        result.report["step3_input"] = step3_input  # "held": step 1's arrays on the card
+    result = _finish_pipeline(inputs, cfg, base, log, stats, paired_split, fq)
+    result.report.update(extra)
     return result
 
 
-def _write_smoothed(batch: ReadBatch, smoothed: ReadBatch, base: str, cfg: PipelineConfig) -> None:
-    """The .h (when headers are kept) and .fq files of a fused steps 1-3 run."""
-    headers_on = cfg.headers or cfg.mode == 3
-    if headers_on and batch.headers is not None:
-        _write_headers(base, batch.headers)
-    _write_fq(base, smoothed, batch.headers if headers_on else None)
+def _in_memory(batch, base, cfg, log, device, blocks, paired_split, debug_dump, extra):
+    """Steps 1 and 3 with the stage-1 artifacts cached by content: the batch
+    is hashed only when artifacts exist to check, and that digest goes into
+    a rebuild's meta.json.  Step 3 takes the arrays of a step 1 run in this
+    call on the card.  Block mode builds each block afresh and writes no
+    artifacts.  Returns the smoothed reads in input order (None where
+    --original skips step 3) and the stats."""
+    recorded = None if cfg.rebuild else _recorded_fingerprint(base)
+    digest = None if recorded is None else _fingerprint(batch)
+    held = None
+    if digest is not None and digest == recorded:
+        log.info("step1: artifacts cached, skipping (use rebuild to force)")
+    elif blocks > 1:
+        return _blockwise_step1_3(batch, base, cfg, blocks, log, device, paired_split), {}
+    else:
+        held = step1_build(batch, base, log, device, digest)
+    if cfg.original:
+        return None, {}
+    extra["step3_input"] = "files" if held is None else "held"  # "held": step 1's arrays on the card
+    return step3_smooth(base, cfg, log, device, debug_dump=debug_dump, held=held)
 
 
-def _finish_pipeline(inputs, cfg, base, log, stats, paired_split) -> PipelineResult:
-    """Steps 4-5 + report."""
+def _finish_pipeline(inputs, cfg, base, log, stats, paired_split, fq) -> PipelineResult:
+    """Steps 4-5 + report.  `fq` is the .fq's bytes as the writer formatted
+    them; under --original it is None, and step 4 reads the copied file."""
     # paired mode: re-split the merged output at the recorded mate boundary
     # into _1/_2 files and compress those
     if paired_split is not None and not cfg.original:
         with log.step("paired re-split"):
-            fq = open(base + ".fq", "rb").read()
-            lines = fq.split(b"\n")
-            cut = 4 * paired_split
+            half1, half2 = _split_pair(fq, paired_split)
+            # the bytes of the line-list join these halves have always had:
+            # "\n" for an empty half, one final newline after the second
             with open(base + "_1.fq", "wb") as f:
-                f.write(b"\n".join(lines[:cut]) + b"\n")
+                f.write(half1 if len(half1) else b"\n")
             with open(base + "_2.fq", "wb") as f:
-                f.write(b"\n".join(lines[cut:]).rstrip(b"\n") + b"\n")
+                f.write(bytes(half2).rstrip(b"\n") + b"\n")
 
     streams = []
     if cfg.mode == 1:
         streams = [base + ".fq"] if paired_split is None else [base + "_1.fq", base + "_2.fq"]
     elif cfg.mode in (2, 3):
         with log.step("step4: stream split"):
-            fq = open(base + ".fq", "rb").read()
-            lines = fq.split(b"\n")
-            with open(base + ".fq.dna", "wb") as f:
-                f.write(b"\n".join(lines[1::4]) + b"\n")
-            with open(base + ".fq.qs", "wb") as f:
-                f.write(b"\n".join(lines[3::4]) + b"\n")
+            if fq is None:
+                with open(base + ".fq", "rb") as f:
+                    fq = f.read()
+            buf, starts = _line_starts(fq)
+            for ext, first in ((".fq.dna", 1), (".fq.qs", 3)):
+                with open(base + ext, "wb") as f:
+                    f.write(_every_fourth(buf, starts, first))
         streams = [base + ".fq.dna", base + ".fq.qs"]
         if cfg.mode == 3:
             streams.append(base + ".h")
@@ -566,7 +580,8 @@ def _finish_pipeline(inputs, cfg, base, log, stats, paired_split) -> PipelineRes
 
 
 def _concat(batches: List[ReadBatch]) -> ReadBatch:
-    """Paired-end mode: append mate reads after file-1 reads."""
+    """The batches' reads one after another, each padded to the widest:
+    paired mode's file-1 then file-2 reads, and block mode's blocks."""
     width = max(b.max_len for b in batches)
     seqs = np.concatenate([np.pad(b.seqs, ((0, 0), (0, width - b.max_len))) for b in batches])
     quals = np.concatenate([np.pad(b.quals, ((0, 0), (0, width - b.max_len))) for b in batches])
@@ -610,12 +625,13 @@ def _ranks_available(device: torch.device) -> int:
     return os.cpu_count() or 1
 
 
-def _blockwise_step1_3(batch, base, cfg, blocks, log, device, paired_split=None):
-    """Block mode: an independent EBWT per ~equal read block, outputs merged
-    in block order.  With equal blocks and a rank for each, every block runs
-    at once on its own rank (parallel/block.py, the JAX package's mesh
-    route); otherwise the blocks run one after another on the device.  Both
-    routes give the same bytes.
+def _blockwise_step1_3(batch, base, cfg, blocks, log, device, paired_split=None) -> ReadBatch:
+    """Block mode: an independent EBWT per ~equal read block.  With equal
+    blocks and a rank for each, every block runs at once on its own rank
+    (parallel/block.py, the JAX package's mesh route); otherwise the blocks
+    run one after another on the device.  Both routes give the same bytes.
+    Returns the blocks' reads back in input order: file-1 reads then file-2
+    reads, which the paired re-split cuts at paired_split.
 
     In the sequential route every block shorter than the largest is filled
     up with dummy 1-base 'A' reads of quality '!', and those are real reads
@@ -630,51 +646,28 @@ def _blockwise_step1_3(batch, base, cfg, blocks, log, device, paired_split=None)
         from bfqzip_tpu_torch.parallel import block_smooth_fastq
 
         with log.step(f"blocks 1-{blocks}: rank-parallel EBWT+smooth+invert"):
-            merged_w, _ = block_smooth_fastq(work, cfg.smooth, blocks, device=device,
-                                             work_dir=os.path.dirname(os.path.abspath(base)))
-        _write_blocks(batch, merged_w, perm, base, cfg)
-        return
-
-    size = max(hi - lo for lo, hi in bounds)
-    parts = []
-    for b, (lo, hi) in enumerate(bounds):
-        take = hi - lo
-        seqs_b = np.zeros((size, batch.max_len), np.uint8)
-        quals_b = np.zeros((size, batch.max_len), np.uint8)
-        lens_b = np.ones(size, np.int32)
-        seqs_b[:take] = work.seqs[lo:hi]
-        quals_b[:take] = work.quals[lo:hi]
-        lens_b[:take] = work.lengths[lo:hi]
-        if take < size:
-            seqs_b[take:, 0] = alphabet.A
-            quals_b[take:, 0] = ord("!")
-        sub = ReadBatch(seqs=seqs_b, quals=quals_b, lengths=lens_b)
-        with log.step(f"block {b+1}/{blocks}: EBWT+smooth+invert ({take} reads)"):
-            out, _ = smooth_fastq(sub, cfg.smooth, device=device)
-        parts.append(ReadBatch(seqs=out.seqs[:take], quals=out.quals[:take],
-                               lengths=out.lengths[:take]))
-    width = max(p.max_len for p in parts)
-    merged_w = ReadBatch(
-        seqs=np.concatenate([np.pad(p.seqs, ((0, 0), (0, width - p.max_len))) for p in parts]),
-        quals=np.concatenate([np.pad(p.quals, ((0, 0), (0, width - p.max_len))) for p in parts]),
-        lengths=np.concatenate([p.lengths for p in parts]),
-    )
-    _write_blocks(batch, merged_w, perm, base, cfg)
-
-
-def _write_blocks(batch, merged_w, perm, base, cfg) -> None:
-    """The .fq of block mode: the blocks' reads (in permuted order) back in
-    input order, file-1 reads then file-2 reads (the paired re-split in
-    _finish_pipeline cuts at paired_split)."""
-    n = batch.num_reads
+            merged, _ = block_smooth_fastq(work, cfg.smooth, blocks, device=device,
+                                           work_dir=os.path.dirname(os.path.abspath(base)))
+    else:
+        size = max(hi - lo for lo, hi in bounds)
+        parts = []
+        for b, (lo, hi) in enumerate(bounds):
+            take = hi - lo
+            seqs_b = np.zeros((size, batch.max_len), np.uint8)
+            quals_b = np.zeros((size, batch.max_len), np.uint8)
+            lens_b = np.ones(size, np.int32)
+            seqs_b[:take] = work.seqs[lo:hi]
+            quals_b[:take] = work.quals[lo:hi]
+            lens_b[:take] = work.lengths[lo:hi]
+            if take < size:
+                seqs_b[take:, 0] = alphabet.A
+                quals_b[take:, 0] = ord("!")
+            sub = ReadBatch(seqs=seqs_b, quals=quals_b, lengths=lens_b)
+            with log.step(f"block {b+1}/{blocks}: EBWT+smooth+invert ({take} reads)"):
+                out, _ = smooth_fastq(sub, cfg.smooth, device=device)
+            parts.append(ReadBatch(seqs=out.seqs[:take], quals=out.quals[:take],
+                                   lengths=out.lengths[:take]))
+        merged = _concat(parts)
     inv = np.empty_like(perm)
     inv[perm] = np.arange(n)
-    merged = ReadBatch(
-        seqs=merged_w.seqs[inv], quals=merged_w.quals[inv],
-        lengths=merged_w.lengths[inv], headers=batch.headers,
-    )
-    _write_fq(base, merged, batch.headers if (cfg.headers or cfg.mode == 3) else None)
-
-
-def _load_fq(base: str) -> ReadBatch:
-    return read_fastq(base + ".fq")
+    return ReadBatch(seqs=merged.seqs[inv], quals=merged.quals[inv], lengths=merged.lengths[inv])

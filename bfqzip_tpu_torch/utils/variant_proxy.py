@@ -29,8 +29,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from bfqzip_tpu_torch.engine import resolve_device, smooth_fastq
+from bfqzip_tpu_torch.engine import smooth_fastq
 from bfqzip_tpu_torch.io.fastq import ReadBatch
+from bfqzip_tpu_torch.utils.profiling import resolve_device
 
 # genome bases 0..3 = ACGT; alphabet codes (alphabet.py): A=1 C=2 G=3 N=4 T=5
 _BASE2CODE = np.array([1, 2, 3, 5], np.uint8)

@@ -181,7 +181,7 @@ def test_cli_spans_and_unchanged_log(tmp_path):
     assert root["name"] == "cli.main" and root["parent"] is None
     assert all(s["call"] == root["id"] for s in spans)
     names = [s["name"] for s in spans]
-    assert names.count("pipeline.fingerprint") == 2  # the cache check, and step 1's meta
+    assert names.count("pipeline.fingerprint") == 1  # step 1's meta: a fresh base has no cache to check
     assert names.count("pipeline.write") == 5  # .bwt, .bwt.qs, .lcp, .meta.json, .fq
     for name in ("pipeline.load_artifacts", "pipeline.format_fastq", "step.read FASTQ",
                  "step.step1: EBWT+QS+LCP construction", "step.step3: cluster smoothing + inversion",
