@@ -20,20 +20,16 @@ Container format (magic "BQZH"):
 
 from __future__ import annotations
 
-import re
 import struct
 from typing import List
 
 import numpy as np
 
 from bfqzip_tpu_torch.ops import rans
+from bfqzip_tpu_torch.utils.profiling import span
 
 MAGIC = b"BQZH"
-_TOKEN = re.compile(rb"\d+|\D+")
-
-
-def _tokenize(h: bytes) -> List[bytes]:
-    return _TOKEN.findall(h)
+KINDS = ("constant", "numeric", "varying")  # field kinds 0, 1 and 2
 
 
 def _zigzag(d: np.ndarray) -> np.ndarray:
@@ -86,50 +82,108 @@ def _varint_decode(data: np.ndarray, count: int) -> np.ndarray:
 
 
 def encode_headers(headers: List[bytes]) -> bytes:
+    """The BQZH container of the header lines (span `headers.encode`)."""
+    with span("headers.encode"):
+        return _encode_headers(headers)
+
+
+def _tokens(headers: List[bytes]):
+    """The headers' tokens (each header's runs of ASCII digits and of other
+    bytes: the regex \\d+|\\D+) as [n, nf] arrays over the concatenated
+    headers: (buf, starts, lengths, digit), digit[f] telling a column of
+    digits; None where they are not uniform: the headers differ in their
+    number of tokens, or a column mixes digit and non-digit tokens."""
     n = len(headers)
-    toks = [_tokenize(h) for h in headers]
-    nf = len(toks[0]) if n else 0
-    uniform = n > 0 and all(len(t) == nf for t in toks)
-    if uniform:
-        for f in range(nf):
-            isnum = toks[0][f].isdigit()
-            if any(t[f].isdigit() != isnum for t in toks):
-                uniform = False
-                break
-    if not uniform:
+    buf = np.frombuffer(b"".join(headers), np.uint8)
+    size = np.fromiter(map(len, headers), np.int64, n)
+    first = np.zeros(n + 1, np.int64)
+    np.cumsum(size, out=first[1:])
+    is_digit = (buf >= ord("0")) & (buf <= ord("9"))
+    edge = np.zeros(buf.size, bool)
+    edge[1:] = is_digit[1:] != is_digit[:-1]
+    edge[first[:-1][size > 0]] = True  # a token starts at each header's start
+    starts = np.flatnonzero(edge)
+    count = np.diff(np.searchsorted(starts, first))
+    nf = int(count[0])
+    if (count != nf).any():
+        return None
+    if nf == 0:  # every header empty
+        none = np.zeros((n, 0), np.int64)
+        return buf, none, none, np.zeros(0, bool)
+    ends = np.append(starts[1:], buf.size).reshape(n, nf)
+    starts = starts.reshape(n, nf)
+    digit = is_digit[starts]
+    if (digit != digit[:1]).any():
+        return None
+    return buf, starts, ends - starts, digit[0]
+
+
+def _numbers(buf: np.ndarray, starts: np.ndarray, lengths: np.ndarray, width: int) -> np.ndarray:
+    """The values of digit tokens of at most `width` (<= 18) digits."""
+    vals = np.zeros(starts.size, np.int64)
+    for j in range(width):
+        inside = j < lengths
+        digit = buf[np.where(inside, starts + j, 0)].astype(np.int64) - ord("0")
+        vals = np.where(inside, vals * 10 + digit, vals)
+    return vals
+
+
+def _encode_headers(headers: List[bytes]) -> bytes:
+    n = len(headers)
+    toks = _tokens(headers) if n else None
+    if toks is None:
         blob = rans.encode_blob_best(b"\n".join(headers) + b"\n" if n else b"")
         return MAGIC + struct.pack("<IB", n, 255) + blob
 
-    parts = [MAGIC + struct.pack("<IB", n, nf)]
-    for f in range(nf):
-        col = [t[f] for t in toks]
+    buf, starts, lengths, digit = toks
+    parts = [MAGIC + struct.pack("<IB", n, len(digit))]
+    for f in range(len(digit)):
+        s, ln = starts[:, f], lengths[:, f]
         # leading zeros only survive a fixed-width (%0*d) re-rendering, and
         # int64 delta coding needs values < 2^63: any column with varying
         # widths + a leading zero, or an over-long value, takes the literal
         # kind-2 path (lossless by construction)
-        numeric_ok = col[0].isdigit()
+        numeric_ok = bool(digit[f])
         if numeric_ok:
-            widths = {len(c) for c in col}
-            fixed = widths.pop() if len(widths) == 1 else None
-            has_lz = any(c[0:1] == b"0" and len(c) > 1 for c in col)
-            if (has_lz and fixed is None) or any(len(c) > 18 for c in col):
+            width = int(ln.max())
+            fixed = width if int(ln.min()) == width else None
+            has_lz = bool(((buf[s] == ord("0")) & (ln > 1)).any())
+            if (has_lz and fixed is None) or width > 18:
                 numeric_ok = False
         if numeric_ok:
             width_flag = (fixed or 0) if has_lz else 0
-            vals = np.array([int(c) for c in col], np.int64)
+            vals = _numbers(buf, s, ln, width)
             deltas = np.empty_like(vals)
             deltas[0] = vals[0]
             deltas[1:] = vals[1:] - vals[:-1]
             payload = _varint_encode(_zigzag(deltas))
             blob = rans.encode_blob_best(payload)
             parts.append(struct.pack("<BBI", 1, width_flag, len(blob)) + blob)
-        elif all(c == col[0] for c in col):
-            parts.append(struct.pack("<BI", 0, len(col[0])) + col[0])
+        elif (ln == ln[0]).all() and all((buf[s + j] == buf[s[0] + j]).all() for j in range(int(ln[0]))):
+            parts.append(struct.pack("<BI", 0, int(ln[0])) + buf[s[0] : s[0] + ln[0]].tobytes())
         else:
-            joined = b"\n".join(col)
+            data = buf.tobytes()
+            joined = b"\n".join(data[a : a + k] for a, k in zip(s.tolist(), ln.tolist()))
             blob = rans.encode_blob_best(joined)
             parts.append(struct.pack("<BI", 2, len(blob)) + blob)
     return b"".join(parts)
+
+
+def field_kinds(blob: bytes) -> dict:
+    """A BQZH container's fields counted by kind (KINDS), read from its
+    field headers; {"fallback": 1} for the non-uniform fallback's one blob."""
+    nf = blob[8]
+    if nf == 255:
+        return {"fallback": 1}
+    counts = dict.fromkeys(KINDS, 0)
+    off = 9
+    for _ in range(nf):
+        kind = blob[off]
+        counts[KINDS[kind]] += 1
+        size_at = off + (2 if kind == 1 else 1)  # a numeric field has a width byte first
+        (size,) = struct.unpack_from("<I", blob, size_at)
+        off = size_at + 4 + size
+    return counts
 
 
 def decode_headers(blob: bytes) -> List[bytes]:

@@ -13,11 +13,13 @@ included) in place of the JAX package's lax.scan.
 from __future__ import annotations
 
 import struct
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 from bfqzip_tpu_torch.models.context import ContextSpec, Order0Spec, Order1Spec, Order2Spec, spec_by_id
 from bfqzip_tpu_torch.utils import native
+from bfqzip_tpu_torch.utils.profiling import current_span, span
 
 PRECISION = 12
 M = 1 << PRECISION
@@ -49,6 +51,11 @@ def choose_spec(data: np.ndarray) -> ContextSpec:
 
 def quantize_freqs(counts: np.ndarray) -> np.ndarray:
     """Scale per-context counts to sum M, every present symbol >= 1."""
+    return _quantize(counts)[0]
+
+
+def _quantize(counts: np.ndarray):
+    """(quantize_freqs's table, whether a context needed the repair below)."""
     c, k = counts.shape
     total = counts.sum(axis=1, keepdims=True)
     empty = total[:, 0] == 0
@@ -58,6 +65,17 @@ def quantize_freqs(counts: np.ndarray) -> np.ndarray:
     drift = M - freq.sum(axis=1)
     top = np.argmax(freq, axis=1)
     freq[np.arange(c), top] += drift
+    # Repair: where many rare symbols were raised to 1, a context can owe
+    # more than its most frequent symbol holds (only past 64 symbols: the
+    # top holds at least floor(M/k) and at most k - 1 were raised).  There the
+    # debt is taken a unit at a time from the largest frequency, none
+    # falling below 1 (M exceeds k, so it always can be).
+    short = np.flatnonzero(freq[np.arange(c), top] < 1)
+    for r in short:
+        row = freq[r]
+        row[top[r]] -= drift[r]
+        for _ in range(-int(drift[r])):
+            row[np.argmax(row)] -= 1
     # unseen contexts: uniform (never exercised, but tables must be valid)
     if empty.any():
         base = M // k
@@ -66,7 +84,7 @@ def quantize_freqs(counts: np.ndarray) -> np.ndarray:
         freq[empty] = u
     if not (freq.sum(axis=1) == M).all():
         raise ValueError("quantised frequencies do not sum to M")
-    return freq.astype(np.uint16)
+    return freq.astype(np.uint16), short.size > 0
 
 
 def _prepare(data: np.ndarray, spec: ContextSpec, lanes: int):
@@ -84,12 +102,12 @@ def _prepare(data: np.ndarray, spec: ContextSpec, lanes: int):
     rows = dense_map[padded].reshape(lanes, chunk)
     ctx = spec.contexts(rows, k)
 
-    counts = np.zeros((spec.num_contexts(k), k), np.int64)
-    np.add.at(counts, (ctx.reshape(-1), rows.reshape(-1).astype(np.int64)), 1)
-    freq = quantize_freqs(counts)
+    c = spec.num_contexts(k)
+    counts = np.bincount((ctx * k + rows).reshape(-1), minlength=c * k).reshape(c, k)
+    freq, repaired = _quantize(counts)
     cum = np.zeros((freq.shape[0], k + 1), np.uint32)
     cum[:, 1:] = np.cumsum(freq, axis=1, dtype=np.uint32)
-    return uniq, k, chunk, rows, ctx, freq, cum
+    return uniq, k, chunk, rows, ctx, freq, cum, repaired
 
 
 def _encode_scan(rows, ctx, freq, cum, lanes, chunk):
@@ -125,7 +143,7 @@ def encode(data, spec: ContextSpec | None = None, lanes: int = DEFAULT_LANES) ->
     data = _as_u8(data)
     spec = spec or choose_spec(data)
     lanes = _auto_lanes(data.size, lanes)
-    uniq, k, chunk, rows, ctx, freq, cum = _prepare(data, spec, lanes)
+    uniq, k, chunk, rows, ctx, freq, cum, _ = _prepare(data, spec, lanes)
 
     final, emits, needs = _encode_scan(rows, ctx, freq, cum, lanes, chunk)
     # emission order: steps t=chunk-1..0, lanes high->low within a step, so
@@ -149,20 +167,25 @@ def encode(data, spec: ContextSpec | None = None, lanes: int = DEFAULT_LANES) ->
 
 
 def encode_best(data, lanes: int = DEFAULT_LANES) -> bytes:
-    """Encode under each affordable context order and keep the smallest blob.
-    Uses the native C++ codec when built; the containers are identical."""
-    data = _as_u8(data)
-    k = np.unique(data).size if data.size else 1
-    specs = [Order0Spec, Order1Spec]
-    if k <= 16:
-        specs.append(Order2Spec)
+    """Encode under each affordable context order and keep the smallest blob
+    (span `codec.rans`).  Uses the native C++ codec when built; the
+    containers are identical, save where a context's table needs
+    _quantize's repair, which the native coder lacks: past 64 symbols each
+    order's table is checked first, and one that needs it is coded here."""
+    with span("codec.rans"):
+        data = _as_u8(data)
+        k = np.count_nonzero(np.bincount(data)) if data.size else 1  # distinct symbols
+        specs = [Order0Spec, Order1Spec]
+        if k <= 16:
+            specs.append(Order2Spec)
 
-    if native.available():
-        raw = data.tobytes()
-        blobs = [native.rans_encode(raw, sp.order, _auto_lanes(data.size, lanes)) for sp in specs]
+        if native.available():
+            raw, native_lanes = data.tobytes(), _auto_lanes(data.size, lanes)
+            blobs = [encode(data, sp, lanes) if k > 64 and _prepare(data, sp, native_lanes)[-1]
+                     else native.rans_encode(raw, sp.order, native_lanes) for sp in specs]
+            return min(blobs, key=len)
+        blobs = [encode(data, sp, lanes) for sp in specs]
         return min(blobs, key=len)
-    blobs = [encode(data, sp, lanes) for sp in specs]
-    return min(blobs, key=len)
 
 
 def encode_blob_best(data, lanes: int = DEFAULT_LANES, pos_reset: int = -1) -> bytes:
@@ -170,12 +193,31 @@ def encode_blob_best(data, lanes: int = DEFAULT_LANES, pos_reset: int = -1) -> b
     context-model coder (BQZC, native/cm_codec.cpp) when the native library
     is built, vs the static-table rANS (BQZR); smallest wins.  pos_reset
     enables BQZC's positional contexts for line-structured streams.  Decode
-    with decode_blob, which dispatches on the magic."""
-    blobs = [encode_best(data, lanes)]
-    if native.cm_available():
-        raw = data if isinstance(data, (bytes, bytearray)) else np.asarray(data, np.uint8).tobytes()
-        blobs.append(native.cm_encode(raw, pos_reset=pos_reset))
+    with decode_blob, which dispatches on the magic.
+
+    The BQZC encode (span `codec.cm`, a child of the caller's open span)
+    runs on a thread of its own beside the BQZR orders: both native coders
+    release the GIL, so a stream costs the longer of the two, not their sum."""
+    if not native.cm_available():
+        return encode_best(data, lanes)
+    raw = data if isinstance(data, (bytes, bytearray)) else np.asarray(data, np.uint8).tobytes()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        cm = pool.submit(_cm_encode, raw, pos_reset, current_span())
+        blobs = [encode_best(data, lanes), cm.result()]
     return min(blobs, key=len)
+
+
+def _cm_encode(raw: bytes, pos_reset: int, parent) -> bytes:
+    with span("codec.cm", parent=parent):
+        return native.cm_encode(raw, pos_reset=pos_reset)
+
+
+def container_name(blob: bytes) -> str:
+    """The container an entropy blob is: "BQZR/o<order>" for the static
+    rANS coder at that context order, else its magic ("BQZC")."""
+    if blob[:4] == MAGIC:
+        return f"BQZR/o{spec_by_id(blob[5]).order}"
+    return blob[:4].decode("ascii")
 
 
 def decode_blob(blob: bytes) -> np.ndarray:

@@ -28,6 +28,7 @@ streams and the paired _1/_2 halves from the bytes it formatted.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import json
 import os
@@ -51,6 +52,12 @@ from bfqzip_tpu_torch.utils.profiling import resolve_device, span
 
 ZIP7 = shutil.which("7z")
 BSC = shutil.which("bsc")
+
+# One record a stream of the last file that step 5's in-tree coder wrote
+# (cleared as step 5 starts): `stream` (the stream's path), `in_bytes`,
+# `out_bytes`, `container` (the winner: "BQZC", "BQZR/o0".."o2" or "BQZH")
+# and, for BQZH, `fields` (its fields by kind).
+codec_streams: List[dict] = []
 
 
 @dataclasses.dataclass
@@ -223,36 +230,49 @@ def step3_smooth(base: str, cfg: PipelineConfig, log: StepLogger, device, debug_
     return out, {k: int(v) for k, v in stats.items()}
 
 
-def _rans_one(path: str) -> str:
-    data = open(path, "rb").read()
-    if path.endswith(".h"):
-        # tokenising header model (models/headers.py)
-        from bfqzip_tpu_torch.models.headers import encode_headers
+def _rans_one(path: str, parent=None) -> str:
+    """Encode one stream into path + ".rans" inside the span `codec.stream`,
+    a child of `parent` (the span of step 5 on the submitting thread), and
+    record it in `codec_streams`."""
+    from bfqzip_tpu_torch.models import headers
 
-        blob = encode_headers(data.split(b"\n")[:-1])
+    with span("codec.stream", parent=parent):
+        data = open(path, "rb").read()
+        if path.endswith(".h"):
+            # tokenising header model (models/headers.py)
+            blob = headers.encode_headers(data.split(b"\n")[:-1])
+        else:
+            # quality streams get BQZC's positional contexts: the in-read
+            # position (reset at each newline) strongly conditions q
+            pos_reset = ord("\n") if path.endswith(".qs") else -1
+            blob = rans.encode_blob_best(data, pos_reset=pos_reset)
+        out = path + ".rans"
+        with open(out, "wb") as f:
+            f.write(blob)
+    record = {"stream": path, "in_bytes": len(data), "out_bytes": len(blob)}
+    if blob[:4] == headers.MAGIC:
+        record.update(container="BQZH", fields=headers.field_kinds(blob))
     else:
-        # quality streams get BQZC's positional contexts: the in-read
-        # position (reset at each newline) strongly conditions q
-        pos_reset = ord("\n") if path.endswith(".qs") else -1
-        blob = rans.encode_blob_best(data, pos_reset=pos_reset)
-    out = path + ".rans"
-    with open(out, "wb") as f:
-        f.write(blob)
+        record["container"] = rans.container_name(blob)
+    codec_streams.append(record)
     return out
 
 
 def step5_compress(streams: List[str], codecs, log: StepLogger) -> Dict[str, List[str]]:
     """Entropy-code every stream with each backend.  The in-tree coder runs
-    the streams concurrently (the native encode releases the GIL)."""
+    the streams concurrently (the native encode releases the GIL), under
+    the span `codec.compress`, each stream's `codec.stream` its child."""
     from concurrent.futures import ThreadPoolExecutor
 
     outputs: Dict[str, List[str]] = {}
     for codec in codecs:
         outs = []
         if codec == "rans" and streams:
-            with log.step("step5: rans " + " ".join(os.path.basename(p) for p in streams)):
+            with log.step("step5: rans " + " ".join(os.path.basename(p) for p in streams)), \
+                    span("codec.compress") as step:
+                codec_streams.clear()
                 with ThreadPoolExecutor(max_workers=min(len(streams), 8)) as tp:
-                    outs.extend(tp.map(_rans_one, streams))
+                    outs.extend(tp.map(functools.partial(_rans_one, parent=step), streams))
             outputs[codec] = outs
             continue
         for path in streams:
@@ -544,7 +564,7 @@ def _finish_pipeline(inputs, cfg, base, log, stats, paired_split, fq) -> Pipelin
     if cfg.mode == 1:
         streams = [base + ".fq"] if paired_split is None else [base + "_1.fq", base + "_2.fq"]
     elif cfg.mode in (2, 3):
-        with log.step("step4: stream split"):
+        with log.step("step4: stream split"), span("pipeline.stream_split"):
             if fq is None:
                 with open(base + ".fq", "rb") as f:
                     fq = f.read()

@@ -27,6 +27,7 @@ from bfqzip_tpu_torch.utils import cuda_build
 
 _LIB = None
 _SEARCHED = False
+_LOAD_LOCK = threading.Lock()
 _NATIVE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "native"
 )
@@ -44,10 +45,20 @@ def _autobuild() -> None:
 
 
 def _find_lib():
+    """The loaded library, or None; searched for (and built) once, under a
+    lock, so that threads asking at once (step 5's streams) all wait for
+    the one answer rather than read None while it loads."""
     global _LIB, _SEARCHED
     if _SEARCHED:
         return _LIB
-    _SEARCHED = True
+    with _LOAD_LOCK:
+        if not _SEARCHED:
+            _LIB = _load_lib()
+            _SEARCHED = True
+    return _LIB
+
+
+def _load_lib():
     path = os.path.join(_NATIVE_DIR, "libbfqnative.so")
     if not os.path.exists(path) and os.path.exists(os.path.join(_NATIVE_DIR, "Makefile")):
         _autobuild()
@@ -77,8 +88,7 @@ def _find_lib():
         lib.cm_decode.argtypes = [vp, i64, vp, i64]
     except (OSError, AttributeError):
         return None
-    _LIB = lib
-    return _LIB
+    return lib
 
 
 def available() -> bool:

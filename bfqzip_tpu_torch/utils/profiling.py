@@ -257,8 +257,9 @@ def device_timeline(trace_path: str, region: str) -> dict:
 #
 # A span is one interval of the program at a layer boundary: its name, its
 # host start and end, its parent span and its call (the outermost span of
-# the thread's stack), and on CUDA a pair of timing events on the current
-# stream, read only when the spans are read.  Each span also opens the
+# the thread's stack, or of the parent given to a span opened on another
+# thread), and on CUDA a pair of timing events on the current stream, read
+# only when the spans are read.  Each span also opens the
 # torch.profiler annotation "bfq.<name>", so it lands in a device trace.
 # The host times are time.time_ns(), the clock (Unix time) the profiler
 # converts its own to: the start is the midpoint of the stamps around the
@@ -279,19 +280,20 @@ class _Span:
     a span that is only timed (span(timed=True) with recording off) has the
     host times and the events alone."""
 
-    __slots__ = ("name", "kept", "id", "parent", "call", "start_ns", "end_ns", "_rf", "_events",
-                 "_device_ms")
+    __slots__ = ("name", "kept", "id", "parent", "call", "start_ns", "end_ns", "_above", "_rf",
+                 "_events", "_device_ms")
 
-    def __init__(self, name: str, kept: bool):
-        self.name, self.kept = name, kept
+    def __init__(self, name: str, kept: bool, above: Optional["_Span"] = None):
+        self.name, self.kept, self._above = name, kept, above
         self.id = self.parent = self.call = self._rf = self._events = self._device_ms = None
 
     def __enter__(self):
         if self.kept:
             stack = _stack()
             self.id = next(_ids)
-            if stack:
-                self.parent, self.call = stack[-1].id, stack[-1].call
+            above = self._above if self._above is not None else (stack[-1] if stack else None)
+            if above is not None:
+                self.parent, self.call = above.id, above.call
             else:
                 self.call = self.id
             stack.append(self)
@@ -344,14 +346,25 @@ def _stack() -> list:
     return stack
 
 
-def span(name: str, timed: bool = False):
+def span(name: str, timed: bool = False, parent: Optional[_Span] = None):
     """Context manager: the span `name` of the code inside it, recorded while
     recording is on (it yields the span).  Off, it yields None, unless
     `timed`: then it yields a span that keeps its times (`ms`) for the
-    caller alone, and opens no annotation and records nothing."""
+    caller alone, and opens no annotation and records nothing.
+
+    `parent`, a span another thread yielded (None: this thread's innermost
+    open span), gives a span opened on a worker thread its parent and call;
+    the spans opened inside it on that thread nest under it as usual."""
     if _recording or _autograd_profiler._is_profiler_enabled:
-        return _Span(name, True)
+        return _Span(name, True, parent)
     return _Span(name, False) if timed else _NULL
+
+
+def current_span() -> Optional[_Span]:
+    """This thread's innermost recorded open span, or None: the `parent` to
+    hand to a span that a worker thread opens for it."""
+    stack = _stack()
+    return stack[-1] if stack else None
 
 
 @contextlib.contextmanager
@@ -368,9 +381,11 @@ def recording():
 def spans() -> List[dict]:
     """The recorded spans in start order, as dicts: name, id, parent (id or
     None), call (the outermost span's id), start_ns / end_ns (time.time_ns
-    clock), host_ms, self_ms (host_ms minus what the children cover) and
-    device_ms (None without a card).  A child opens and closes inside its
-    parent, on the parent's thread."""
+    clock), host_ms, self_ms (host_ms minus the union of its children's
+    intervals, so that children running at once on several threads count
+    once) and device_ms (None without a card).  A child opens and closes
+    inside its parent: on the parent's thread, or on a worker thread that
+    was handed the parent (span(parent=...)) and joined before it closes."""
     done = sorted(_records, key=lambda s: s.start_ns)
     children: Dict[int, list] = {}
     for s in done:

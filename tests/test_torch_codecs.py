@@ -104,6 +104,14 @@ _HEADER_SETS = {
     "mixed_width_zeros": [b"@a.007", b"@a.1000", b"@a.08"],
     "overlong": [b"@x 123456789012345678901234567890", b"@x 99999999999999999999"],
     "empty": [],
+    # the one-pass tokeniser's edges: empty lines, newlines inside a header
+    # (tokenised one by one), a column of digits and non-digits, CASAVA names
+    "all_blank": [b"", b"", b""],
+    "blank_among": [b"@a1", b"", b"@a2"],
+    "newline_inside": [b"@1\n2", b"@3\n4", b"@5\n6"],
+    "digit_or_not": [b"@12:x", b"@ab:x"],
+    "casava": [b"@ERR174310.%d HSQ1008:141:D0CC8ACXX:3:%d:%d:%d/1" % (90000 + i, 1101 + i // 150, 1000 + (i * 7919) % 20000, 1000 + i // 3)
+               for i in range(300)],
 }
 
 

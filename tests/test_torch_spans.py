@@ -1,10 +1,11 @@
 """The port's spans (utils/profiling.span): nothing recorded or opened while
-recording is off; parent, call and self time inside recording(); the
-profiler's annotations of smooth_fastq nested as the spans are, on the
-spans' clock; the CLI's spans with its OUT.log unchanged; the out-of-core
-route's spans, one a chunk and one a segment, and its spill counter; the
-sharded path's reports built only when asked for; and the benchmark's span
-readers on hand-made span lists."""
+recording is off; parent, call and self time inside recording(), children
+on worker threads included; the profiler's annotations of smooth_fastq
+nested as the spans are, on the spans' clock; the CLI's spans with its
+OUT.log unchanged; --m3's step 4 and step 5 spans, each stream's on a pool
+thread; the out-of-core route's spans, one a chunk and one a segment, and
+its spill counter; the sharded path's reports built only when asked for;
+and the benchmark's span readers on hand-made span lists."""
 
 import ast
 import importlib.util
@@ -12,13 +13,14 @@ import json
 import os
 import shutil
 import sys
+import threading
 import time
 
 import numpy as np
 import pytest
 import torch
 
-from bfqzip_tpu_torch import cli, external
+from bfqzip_tpu_torch import cli, external, pipeline
 from bfqzip_tpu_torch.config import SmoothConfig
 from bfqzip_tpu_torch.engine import smooth_fastq
 from bfqzip_tpu_torch.io.fastq import read_fastq
@@ -111,6 +113,42 @@ def test_nesting_ids_and_self_time():
     assert by["first"]["self_ms"] == pytest.approx(by["first"]["host_ms"] - by["inner"]["host_ms"])
     assert by["inner"]["self_ms"] == pytest.approx(by["inner"]["host_ms"])
     assert call["self_ms"] >= 2.0 and by["first"]["self_ms"] >= 3.0
+
+
+def test_children_on_other_threads_count_once():
+    """Two children opened at once on two threads, each handed the parent:
+    both take its id and call, their own children nest under them, and the
+    parent's self time is its host time less the union of theirs."""
+    both_open = threading.Barrier(2)
+
+    def child(name, parent):
+        with profiling.span(name, parent=parent):
+            both_open.wait(timeout=10)
+            time.sleep(0.02)
+            with profiling.span(name + ".inner"):
+                time.sleep(0.002)
+
+    with profiling.recording():
+        with profiling.span("call"):
+            with profiling.span("parent") as parent:
+                threads = [threading.Thread(target=child, args=(n, parent)) for n in ("a", "b")]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=10)
+                assert not any(t.is_alive() for t in threads)
+                time.sleep(0.005)
+    by = {s["name"]: s for s in profiling.spans()}
+    call, parent = by["call"], by["parent"]
+    for name in ("a", "b"):
+        assert by[name]["parent"] == parent["id"] and by[name]["call"] == call["id"]
+        assert by[name + ".inner"]["parent"] == by[name]["id"]
+        assert by[name + ".inner"]["call"] == call["id"]
+    a, b = by["a"], by["b"]
+    union_ms = (max(a["end_ns"], b["end_ns"]) - min(a["start_ns"], b["start_ns"])) / 1e6
+    assert union_ms < a["host_ms"] + b["host_ms"]  # they ran at once
+    assert parent["self_ms"] == pytest.approx(parent["host_ms"] - union_ms)
+    assert parent["self_ms"] >= 5.0
 
 
 def _profiled_smooth_fastq(batch, path: str):
@@ -210,6 +248,39 @@ def test_cli_spans_and_unchanged_log(tmp_path):
     assert "step.step1: EBWT+QS+LCP construction" not in names
     load = next(s for s in spans if s["name"] == "pipeline.load_artifacts")
     assert load["parent"] == spans[0]["id"] and spans[0]["name"] == "cli.main"
+
+
+def test_cli_m3_spans(tmp_path):
+    """Step 4's and step 5's spans under cli.main: one codec.stream a stream,
+    opened on step 5's pool threads with codec.compress as parent and the
+    run's call; the coders' spans inside each, headers.encode inside the .h
+    stream's; no self time below zero."""
+    src = str(tmp_path / "reads.fastq")
+    shutil.copyfile(golden_path("example.in.fastq"), src)
+    opened_on = set()
+    real_span = profiling.span
+
+    def span(name, *args, **kw):
+        if name == "codec.stream":
+            opened_on.add(threading.get_ident())
+        return real_span(name, *args, **kw)
+
+    with profiling.recording(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pipeline, "span", span)
+        assert cli.main([src, "-o", str(tmp_path / "out"), "--m3", "--cpu"]) == 0
+    assert threading.get_ident() not in opened_on
+    spans = profiling.spans()
+    root = spans[0]
+    assert root["name"] == "cli.main" and all(s["call"] == root["id"] for s in spans)
+    names = [s["name"] for s in spans]
+    assert names.count("pipeline.stream_split") == names.count("codec.compress") == 1
+    compress = next(s for s in spans if s["name"] == "codec.compress")
+    streams = [s for s in spans if s["name"] == "codec.stream"]
+    assert len(streams) == 3 and all(s["parent"] == compress["id"] for s in streams)
+    inside = {s["id"]: {c["name"] for c in spans if c["parent"] == s["id"]} for s in streams}
+    assert sorted(map(sorted, inside.values())) == [
+        ["codec.cm", "codec.rans"], ["codec.cm", "codec.rans"], ["headers.encode"]]
+    assert all(s["self_ms"] >= 0 for s in spans)
 
 
 @pytest.mark.parametrize("short_disk", [False, True], ids=["spill", "short_disk"])
@@ -318,6 +389,25 @@ def _mesh_spans():
     return spans
 
 
+def _m3_spans():
+    spans = []
+    for c in (1, 100):  # two --m3 files
+        spans += [_s("cli.main", c, host_ms=20000.0),
+                  _s("pipeline.stream_split", c + 1, c, c, host_ms=90.0 + c),
+                  _s("codec.compress", c + 2, c, c, host_ms=15000.0 + c),
+                  _s("codec.stream", c + 3, c + 2, c, host_ms=14000.0),
+                  _s("codec.rans", c + 4, c + 3, c, host_ms=1000.0),
+                  _s("codec.cm", c + 5, c + 3, c, host_ms=12000.0 + c),
+                  _s("codec.stream", c + 6, c + 2, c, host_ms=9000.0),
+                  _s("codec.rans", c + 7, c + 6, c, host_ms=800.0 + c),
+                  _s("codec.cm", c + 8, c + 6, c, host_ms=8000.0),
+                  _s("codec.stream", c + 9, c + 2, c, host_ms=6000.0),
+                  _s("headers.encode", c + 10, c + 9, c, host_ms=5900.0 + c),
+                  _s("codec.rans", c + 11, c + 10, c, host_ms=100.0),
+                  _s("codec.cm", c + 12, c + 10, c, host_ms=200.0)]
+    return spans
+
+
 READERS = {
     "suffix.build_span_ms": (_batch_spans, 550.0 + 50.5),
     "suffix.sort_span_ms": (_batch_spans, 300.0 + 50.5),
@@ -330,6 +420,11 @@ READERS = {
     "pipeline.load_artifacts_s": (_file_spans, (200.0 + 301 / 3) / 1e3),
     "pipeline.unspanned_s": (_file_spans, (90.0 + 301 / 3) / 1e3),
     "sharded.host_span_ms": (_mesh_spans, 80.0 + 120.0 + 400.0 + 50.5),
+    "pipeline.stream_split_s": (_m3_spans, (90.0 + 50.5) / 1e3),
+    "codec.compress_s": (_m3_spans, (15000.0 + 50.5) / 1e3),
+    "codec.cm_s": (_m3_spans, (12000.0 + 8000.0 + 200.0 + 50.5) / 1e3),
+    "codec.rans_s": (_m3_spans, (1000.0 + 800.0 + 100.0 + 50.5) / 1e3),
+    "codec.headers_s": (_m3_spans, (5900.0 + 50.5) / 1e3),
 }
 
 
@@ -426,3 +521,14 @@ def test_ext_peak_rss_reader():
     reader = _load("metrics", "external.peak_rss_gb")
     assert reader.read({"rss": {"start": 2_000_000_000, "peak": 5_500_000_000}}) == pytest.approx(3.5)
     assert reader.read({"rss": None}) is None and reader.read({}) is None
+
+
+def test_codec_ratio_reader():
+    """The last file's archive bytes from the program's counter over the
+    input's bytes; nothing where the program kept no counter."""
+    reader = _load("metrics", "codec.ratio")
+    files = [{"seconds": 20.0, "archive_bytes": 10_000_000}, {"seconds": 19.0, "archive_bytes": 10_000_500}]
+    assert reader.read({"files": files, "input_bytes": 140_000_000}) == pytest.approx(10_000_500 / 140e6)
+    parent = [{"seconds": 20.0, "archive_bytes": None}]
+    assert reader.read({"files": parent, "input_bytes": 140_000_000}) is None
+    assert reader.read({}) is None
